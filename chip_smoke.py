@@ -1,0 +1,361 @@
+"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero):
+  1. card: torch version, card name and power limit; TF32 switched off
+     for matmuls and cuDNN (the savgol and temporal convs go through cuDNN).
+  2. build: compile every CUDA source of the port from this checkout.
+  3. kernels: each kernel against its plain PyTorch version at the shapes
+     the serving path gives it, atol 2e-5 / rtol 1e-4, with the device
+     time per call (CUDA events around 50 queued calls) of the kernel, the
+     plain version and one PyTorch library call.
+  4. slice: the full-width model (random weights from a NumPy seed) serves
+     64 synthetic clips x 240 frames against a 2048-window character
+     database: featurize -> windows -> encode -> batched stream runner with
+     the CVAE and both streams.  Launch counters are zeroed just before
+     and read just after each of 3 timed runs; the rates are the median
+     run's, with the range.
+  5. parity: the same slice at 2 streams x 120 frames, deterministic,
+     through the port on the GPU and on the CPU with the same weights;
+     positions within 1e-3 and identical nearest-neighbour picks.
+
+The line before the last is a JSON object describing every kernel; the
+last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+
+import torch  # noqa: E402
+
+from mocha_sigasia2023_torch.data.dataset import (  # noqa: E402
+    compute_norm_stats, window_xy_features)
+from mocha_sigasia2023_torch.data.preprocess import featurize_clip  # noqa: E402
+from mocha_sigasia2023_torch.data.synthetic import make_mocha_bvh_data  # noqa: E402
+from mocha_sigasia2023_torch.data.windows import window_features  # noqa: E402
+from mocha_sigasia2023_torch.models.cvae import CVAEConfig, init_cvae  # noqa: E402
+from mocha_sigasia2023_torch.models.generator import (  # noqa: E402
+    GeneratorConfig, init_generator)
+from mocha_sigasia2023_torch.ops import attention, build  # noqa: E402
+from mocha_sigasia2023_torch.runtime import features as rtf  # noqa: E402
+from mocha_sigasia2023_torch.runtime.stream import (  # noqa: E402
+    build_consts, make_batch_runner)
+
+# H100 SXM data sheet: HBM bandwidth and fp32 rate outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
+ATOL, RTOL = 2e-5, 1e-4
+WINDOW_PAD = 60 // 4   # featurize yields T - window//4 windows per clip
+# the slice: the JAX package's e2e bench workload (bench.py:399-530)
+STREAMS, FRAMES, DB_WINDOWS = 64, 240, 2048
+REPEATS = 3
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def time_ms(fn, calls=50, batches=5, warmup=5) -> float:
+    """Device time of one call: CUDA events around ``calls`` calls queued
+    back to back, divided by ``calls``; the median over ``batches`` such
+    runs.  The host queues the calls faster than the card runs them, so
+    the wrapper's host work hides behind the device work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(batches):
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+# ---------------------------------------------------------------------------
+# kernel phase
+# ---------------------------------------------------------------------------
+
+# (name, batch, heads, query rows, key rows, head dim)
+ATTN_SHAPES = [
+    ("encoder chunk", 128, 4, 90, 90, 128),
+    ("decoder streams", 64, 4, 90, 90, 256),
+    ("cross M=45", 64, 4, 90, 45, 256),
+]
+
+
+def attention_bound_ms(b, h, n, m, d):
+    """Least time for the call on an H100 SXM: each input read once and the
+    output written once at the HBM rate, against the fp32 operations (two
+    products as FMAs plus scale, max, exp and divide per logit) at the
+    non-tensor-core rate."""
+    nbytes = 4 * (b * h * n * d * 2 + b * h * m * d * 2)
+    flops = 4 * b * h * n * m * d + 4 * b * h * n * m
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def kernel_phase(dev):
+    rng = np.random.RandomState(0)
+    rows = []
+    for name, b, h, n, m, d in ATTN_SHAPES:
+        # the serving path hands the kernel (B, N, H, d) projections viewed
+        # as (B, H, N, d)
+        def make(rows_):
+            return torch.as_tensor(rng.standard_normal(
+                (b, rows_, h, d)).astype(np.float32), device=dev).transpose(1, 2)
+
+        q, k, v = make(n), make(m), make(m)
+        scale = d ** -0.5
+        out = attention.fused_attention(q, k, v, scale=scale)
+        ref = attention.attention_reference(q, k, v, scale)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        max_abs = float(err.max())
+        max_rel = float((err / ref.abs().clamp_min(1e-30)).max())
+        ok = bool((err <= ATOL + RTOL * ref.abs()).all())
+        check(torch.isfinite(out).all(), f"attention {name}: non-finite")
+        check(ok, f"attention {name}: max abs err {max_abs:.3e} exceeds "
+              f"atol {ATOL} + rtol {RTOL}")
+        ms = time_ms(lambda: attention.fused_attention(q, k, v, scale=scale))
+        plain_ms = time_ms(
+            lambda: attention.attention_reference(q, k, v, scale))
+        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, scale=scale))
+        bound_ms, bound_by = attention_bound_ms(b, h, n, m, d)
+        row = {"shape": name, "B": b, "H": h, "N": n, "M": m, "d": d,
+               "max_abs_err": max_abs, "max_rel_err": max_rel, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"[kernel] attention {name} (B={b},H={h},N={n},M={m},d={d}): "
+            f"max abs {max_abs:.3e} max rel {max_rel:.3e} | kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        rows.append(row)
+    torch.cuda.synchronize()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the serving slice
+# ---------------------------------------------------------------------------
+
+
+def character_setup(gen, db_windows, dev):
+    """Norm stats and session constants from one synthetic character clip
+    (demo mode: no dataset), as the JAX package's e2e benchmark does."""
+    cha_clip = make_mocha_bvh_data(T=db_windows + WINDOW_PAD, seed=10_000,
+                                   walk_speed=60.0)
+    feats = featurize_clip(
+        torch.as_tensor(cha_clip["rotations"], dtype=torch.float32, device=dev),
+        torch.as_tensor(cha_clip["positions"], dtype=torch.float32, device=dev),
+        cha_clip["order"], cha_clip["names"], cha_clip["parents"])
+    w = window_features(feats, 60, 10, padded=False)
+    X, Y, root = window_xy_features(w["rotations"], w["positions"],
+                                    w["velocities"], w["angular_velocities"],
+                                    feats["bone_parents"])
+    norm = compute_norm_stats(X.cpu().numpy(), Y.cpu().numpy(),
+                              root.cpu().numpy())
+    cha = rtf.clip_stream_features_device(cha_clip, gen, norm, device=dev)
+    cnt_norm = rtf.compute_cnt_norm(cha["encoded"], cha["cnt"])
+    consts = build_consts(norm, cnt_norm, None, cha, device=dev)
+    return norm, consts, cha["bone_parents"]
+
+
+def run_slice(gen, cvae, norm, consts, parents, clips, dev, *,
+              deterministic, root_dtype, seed=7):
+    runner = make_batch_runner(gen, cvae, consts, parents,
+                               deterministic=deterministic,
+                               root_dtype=root_dtype, device=dev)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    frame0, xs = rtf.batch_stream_features_device(clips, gen, norm,
+                                                  emit_cnt=False, device=dev)
+    sync(dev)
+    t1 = time.perf_counter()
+    out = runner(frame0, xs, None if deterministic else generator)
+    sync(dev)
+    t2 = time.perf_counter()
+    return out, t1 - t0, t2 - t1
+
+
+def check_outputs(out, T, S, J=25):
+    shapes = {"src_pos": (T, S, J, 3), "trans_pos": (T, S, J, 3),
+              "ik_pos": (T, S, J, 3), "cm_pos": (T, S, J, 3),
+              "trans_rot": (T, S, J, 4), "ik_rot": (T, S, J, 4),
+              "cm_rot": (T, S, J, 4), "nn_index": (T, S)}
+    for k, shape in shapes.items():
+        check(tuple(out[k].shape) == shape,
+              f"output {k} has shape {tuple(out[k].shape)}, want {shape}")
+        check(bool(torch.isfinite(out[k].float()).all()),
+              f"output {k} is not finite")
+
+
+def slice_phase(cfg, cvae_cfg, dev, *, streams, frames, db_windows, repeats):
+    gen = init_generator(cfg, seed=0, device=dev)
+    cvae = init_cvae(cvae_cfg, seed=1, device=dev)
+    t0 = time.perf_counter()
+    norm, consts, parents = character_setup(gen, db_windows, dev)
+    sync(dev)
+    log(f"[slice] character database: {consts.cha_encoded.shape[0]} windows "
+        f"in {time.perf_counter() - t0:.2f} s")
+    clips = [make_mocha_bvh_data(T=frames + WINDOW_PAD, seed=i)
+             for i in range(streams)]
+    run_slice(gen, cvae, norm, consts, parents, clips, dev,
+              deterministic=False, root_dtype=torch.float32)   # warm-up
+    n_chunks = -(-streams * frames // 128)
+    expected = (n_chunks * cfg.encoder_depth
+                + ((frames - 1) * 2 + 1) * cfg.decoder_depth)
+    runs = []
+    for r in range(repeats):
+        attention.fused_attention.launches = 0
+        out, t_feat, t_run = run_slice(gen, cvae, norm, consts, parents,
+                                       clips, dev, deterministic=False,
+                                       root_dtype=torch.float32, seed=100 + r)
+        launches = attention.fused_attention.launches
+        check_outputs(out, frames, streams)
+        log(f"[slice] repeat {r}: featurize+encode {t_feat:.3f} s, stream "
+            f"runner {t_run:.3f} s, attention launches {launches}")
+        check(launches >= expected,
+              f"attention kernel launched {launches} times on the main path,"
+              f" expected at least {expected}")
+        runs.append((t_feat + t_run, t_feat, t_run, launches))
+    # host time varies run to run: report the median repeat and the range
+    runs.sort()
+    total, t_feat, t_run, launches = runs[len(runs) // 2]
+    n = streams * frames
+    result = {"streams": streams, "frames": frames, "repeats": repeats,
+              "database_windows": int(consts.cha_encoded.shape[0]),
+              "featurize_encode_s": t_feat, "runner_s": t_run,
+              "e2e_frames_per_s": n / total,
+              "e2e_frames_per_s_range": [n / runs[-1][0], n / runs[0][0]],
+              "step_loop_frames_per_s": n / t_run,
+              "step_loop_frames_per_s_range": [
+                  n / max(r[2] for r in runs), n / min(r[2] for r in runs)],
+              "attention_launches": launches,
+              "expected_launches_at_least": expected}
+    log(f"[slice] {json.dumps(result)}")
+    return result, launches
+
+
+def parity_phase(cfg, cvae_cfg, dev, *, streams=2, frames=120,
+                 db_windows=256):
+    cpu = torch.device("cpu")
+    outs = {}
+    for d in (dev, cpu):
+        gen = init_generator(cfg, seed=0, device=d)
+        cvae = init_cvae(cvae_cfg, seed=1, device=d)
+        norm, consts, parents = character_setup(gen, db_windows, d)
+        clips = [make_mocha_bvh_data(T=frames + WINDOW_PAD, seed=50 + i)
+                 for i in range(streams)]
+        out, _, _ = run_slice(gen, cvae, norm, consts, parents, clips, d,
+                              deterministic=True, root_dtype=torch.float64)
+        outs[d.type] = {k: v.cpu() for k, v in out.items()}
+    g, c = outs[dev.type], outs["cpu"]
+    check_outputs(g, frames, streams)
+    check(torch.equal(g["nn_index"], c["nn_index"]),
+          "parity: NN picks differ between GPU and CPU at "
+          f"{int((g['nn_index'] != c['nn_index']).sum())} (frame, stream)s")
+    errs = {k: float((g[k] - c[k]).abs().max())
+            for k in ("src_pos", "trans_pos", "ik_pos", "cm_pos")}
+    log(f"[parity] GPU vs CPU, {streams} streams x {frames} frames: "
+        f"max abs position error {json.dumps(errs)}; NN picks identical")
+    check(max(errs.values()) <= 1e-3, f"parity: positions differ {errs}")
+    return errs
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+
+    t0 = time.perf_counter()
+    attention.load_library()
+    info = build.BUILD_INFO[attention.SOURCE]
+    log(f"[build] {attention.SOURCE}: {info['seconds']:.2f} s "
+        f"(phase {time.perf_counter() - t0:.2f} s) -> {info['path']}")
+    for line in info["log"].splitlines():
+        log(f"[build]   {line}")
+
+    attn_rows = kernel_phase(dev)
+
+    cfg = GeneratorConfig()
+    cvae_cfg = CVAEConfig(output_seq=cfg.num_tokens)
+    slice_result, launches = slice_phase(
+        cfg, cvae_cfg, dev, streams=STREAMS, frames=FRAMES,
+        db_windows=DB_WINDOWS, repeats=REPEATS)
+    lo, hi = slice_result["e2e_frames_per_s_range"]
+    log(f"[slice] median of {REPEATS}: e2e "
+        f"{slice_result['e2e_frames_per_s']:.1f} frames/s (range {lo:.1f}-"
+        f"{hi:.1f}), step loop {slice_result['step_loop_frames_per_s']:.1f} "
+        f"frames/s on {card}")
+
+    parity_phase(cfg, cvae_cfg, dev)
+
+    main_row = next(r for r in attn_rows if r["shape"] == "decoder streams")
+    kernels = [{
+        "name": "attention",
+        "route": "cuda",
+        "source": "mocha_sigasia2023_torch/ops/csrc/attention.cu",
+        "replaces": "mocha_sigasia2023_tpu/ops/attention.py:37",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in attn_rows),
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+        "shapes": attn_rows,
+    }]
+    print(card_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

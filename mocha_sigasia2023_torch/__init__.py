@@ -1,0 +1,20 @@
+"""mocha_sigasia2023_torch — the PyTorch/CUDA port of mocha_sigasia2023_tpu.
+
+The serving path of the JAX package, rebuilt on PyTorch for an NVIDIA
+H100: raw clip arrays -> featurize -> stride-1 windows -> generator
+encode -> batched per-frame stream step -> poses.  The layout mirrors the
+JAX package so each module's counterpart is easy to find:
+
+kinematics  quaternion algebra, FK/IK, the foot-contact springs.
+data        synthetic clips, windowing, clip featurization, window features.
+models      skeleton graph tables, layers, generator, CVAE, weight import.
+runtime     context matching, stream featurization, the batched stream
+            runner.
+ops         numerics guards and the hand-written CUDA attention kernel.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+with no CUDA device and no explicit CPU request they raise.  This package
+imports nothing of JAX or of the JAX package.
+"""
+
+__version__ = "0.1.0"

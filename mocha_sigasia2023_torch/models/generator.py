@@ -1,0 +1,203 @@
+"""MOCHA generator: ST-GCN motion embedding + context-matching transformer.
+
+Counterpart of mocha_sigasia2023_tpu/models/generator.py (serving subset:
+``embed_tokens``, ``encode``, ``content_feature``, ``decode``, ``forward``).
+
+    (B, 60, 24, 15) motion windows
+      -> 1x1 conv -> joint ST-GCN (pool folded into the graph contraction,
+         temporal conv + mean-pool folded into one stride-4 conv)
+      -> body ST-GCN -> (B, 90, 256) tokens + learned positional embedding
+      -> encoder transformer (self-attention)
+      -> decoder transformer (AdaIN + IN-q/k cross-attention)
+      -> head (joint 1x1 graph conv hoisted before the time repeat/unpool)
+      -> (B, 60, 24, 15)
+
+:class:`Generator` holds the parameters under the JAX pytree paths and the
+graph tables as non-persistent buffers; the functions below take it as the
+JAX functions take ``(params, cfg)``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import resolve_device
+from . import graph
+from .layers import (
+    conv1x1, leaky_relu, mean_variance_norm, numpy_init_,
+    stgcn_block, stgcn_params, temporal_conv, transformer,
+    transformer_params,
+)
+
+
+class GeneratorConfig(NamedTuple):
+    """Model hyperparameters (defaults are the shipped model)."""
+
+    mot_in_dim: int = 15
+    nframes: int = 60
+    njoints: int = 24
+    nbody: int = 6
+    temporal_patch_size: int = 4
+    encoder_dim: int = 256
+    encoder_depth: int = 2
+    encoder_heads: int = 4
+    encoder_dim_head: int = 128
+    encoder_mlp_dim: int = 512
+    decoder_dim: int = 256
+    decoder_depth: int = 2
+    decoder_heads: int = 4
+    decoder_dim_head: int = 256
+    decoder_mlp_dim: int = 512
+    dropout: float = 0.1
+    layout: str = "mocha"
+    joint_strategy: str = "distance"
+    joint_max_hop: int = 2
+    bodypart_strategy: str = "distance"
+    bodypart_max_hop: int = 1
+
+    @property
+    def num_temp(self) -> int:
+        return self.nframes // self.temporal_patch_size
+
+    @property
+    def num_tokens(self) -> int:
+        return self.nbody * self.num_temp
+
+
+def _meanpool_taps(k: int, tps: int) -> np.ndarray:
+    """(k + tps - 1, k) map from a temporal kernel to the kernel of the
+    same conv followed by the kernel==stride==tps mean-pool."""
+    Fm = np.zeros((k + tps - 1, k), np.float32)
+    for i in range(tps):
+        Fm[np.arange(k) + i, np.arange(k)] += 1.0 / tps
+    return Fm
+
+
+class Generator(nn.Module):
+    def __init__(self, cfg: GeneratorConfig = GeneratorConfig()):
+        super().__init__()
+        self.cfg = cfg
+        A_j = torch.as_tensor(graph.joint_adjacency(
+            cfg.layout, cfg.joint_strategy, cfg.joint_max_hop), dtype=torch.float32)
+        A_b = torch.as_tensor(graph.bodypart_adjacency(
+            cfg.layout, cfg.bodypart_strategy, cfg.bodypart_max_hop),
+            dtype=torch.float32)
+        pool = torch.as_tensor(graph.pool_matrix(cfg.layout))
+        unpool = torch.as_tensor(graph.unpool_matrix(cfg.layout))
+        K_j, K_b = A_j.shape[0], A_b.shape[0]
+        e, d, tps = cfg.encoder_dim, cfg.decoder_dim, cfg.temporal_patch_size
+
+        self.pos_emb = nn.Parameter(torch.zeros(1, cfg.num_tokens, e))
+        self.embed = nn.ModuleDict({
+            "conv_in": nn.Conv2d(cfg.mot_in_dim, e // tps, 1),
+            "joint": stgcn_params(e // tps, e, K_j, 5),
+            "body": stgcn_params(e, e, K_b, 3),
+        })
+        self.encoder = transformer_params(
+            e, cfg.encoder_depth, cfg.encoder_heads, cfg.encoder_dim_head,
+            cfg.encoder_mlp_dim, adain_on=False)
+        self.decoder = transformer_params(
+            d, cfg.decoder_depth, cfg.decoder_heads, cfg.decoder_dim_head,
+            cfg.decoder_mlp_dim, adain_on=True)
+        self.head = nn.ModuleDict({
+            "body": stgcn_params(d, d, K_b, 3),
+            "joint": stgcn_params(d, d // tps, K_j, 5),
+            "conv_out": nn.Conv2d(d // tps, cfg.mot_in_dim, 1),
+        })
+        # graph tables (not parameters, not in the state dict)
+        self.register_buffer("A_b", A_b, persistent=False)
+        self.register_buffer(
+            "AP", torch.einsum("kvw,wu->kvu", A_j, pool), persistent=False)
+        self.register_buffer(
+            "UA", torch.einsum("vw,kwu->kvu", unpool, A_j), persistent=False)
+        self.register_buffer(
+            "meanpool_taps", torch.as_tensor(_meanpool_taps(5, tps)),
+            persistent=False)
+
+
+def init_generator(cfg: GeneratorConfig = GeneratorConfig(), seed: int = 0,
+                   device=None) -> Generator:
+    """A generator with random weights drawn from a NumPy seed."""
+    dev = resolve_device(device)
+    return numpy_init_(Generator(cfg), seed).requires_grad_(False).to(dev).eval()
+
+
+def _tconv_meanpool(p, taps, x, tps: int):
+    """Reflect-padded temporal conv followed by the kernel==stride==tps
+    mean-pool, as ONE stride-tps conv with the averaged kernel."""
+    w = p.weight                                   # (O, I, k, 1)
+    k = int(w.shape[2])
+    pad = (k - 1) // 2
+    w2 = torch.einsum("oikv,mk->oimv", w, taps.to(w.dtype))
+    x = F.pad(x, (0, 0, pad, pad), mode="reflect")
+    return F.conv2d(x, w2, p.bias, stride=(tps, 1))
+
+
+def embed_tokens(gen: Generator, x: torch.Tensor) -> torch.Tensor:
+    """Motion window (B, T, V, C) -> tokens (B, num_temp*nbody, dim)."""
+    cfg = gen.cfg
+    h = x.permute(0, 3, 1, 2)                      # b t v c -> b c t v
+    h = conv1x1(gen.embed["conv_in"], h)
+    h = leaky_relu(h, 0.2)
+    y = conv1x1(gen.embed["joint"]["gcn"], h)
+    n, kc, t, v = y.shape
+    K = gen.AP.shape[0]
+    h = torch.einsum("nkctv,kvu->nctu", y.reshape(n, K, kc // K, t, v),
+                     gen.AP)
+    h = _tconv_meanpool(gen.embed["joint"]["tcn"], gen.meanpool_taps, h,
+                        cfg.temporal_patch_size)
+    h = stgcn_block(gen.embed["body"], h, gen.A_b)
+    b, c, t, v = h.shape
+    return h.permute(0, 2, 3, 1).reshape(b, t * v, c)
+
+
+def encode(gen: Generator, x: torch.Tensor) -> torch.Tensor:
+    """Embedding + positional embedding + encoder transformer."""
+    tokens = embed_tokens(gen, x)
+    tokens = tokens + gen.pos_emb[:, : tokens.shape[1]]
+    return transformer(gen.encoder, tokens, None, heads=gen.cfg.encoder_heads,
+                       adain_on=False)
+
+
+def content_feature(encoded: torch.Tensor) -> torch.Tensor:
+    """The 'cnt' context feature: per-channel instance norm over tokens."""
+    return mean_variance_norm(encoded)
+
+
+def decode(gen: Generator, src_encoded: torch.Tensor,
+           cha_encoded: torch.Tensor) -> torch.Tensor:
+    """Decoder transformer + inverse embedding -> (B, T, V, 15) motion, with
+    the joint head's lrelu + 1x1 graph conv hoisted before the time repeat
+    and the unpool folded into the adjacency contraction."""
+    cfg = gen.cfg
+    tok = transformer(gen.decoder, src_encoded, cha_encoded,
+                      heads=cfg.decoder_heads, adain_on=True)
+    b, s, c = tok.shape
+    h = tok.reshape(b, cfg.num_temp, cfg.nbody, c).permute(0, 3, 1, 2)
+    h = stgcn_block(gen.head["body"], h, gen.A_b)
+    p_j = gen.head["joint"]
+    g = conv1x1(p_j["gcn"], leaky_relu(h, 0.2))   # (B, K*C', num_temp, 6)
+    n, kc, t, v = g.shape
+    K = gen.UA.shape[0]
+    h = torch.einsum("nkctv,kvu->nctu", g.reshape(n, K, kc // K, t, v),
+                     gen.UA)                      # (B, C', num_temp, 24)
+    h = torch.repeat_interleave(h, cfg.temporal_patch_size, dim=2)
+    h = temporal_conv(p_j["tcn"], h)
+    h = leaky_relu(h, 0.2)
+    h = conv1x1(gen.head["conv_out"], h)
+    return h.permute(0, 2, 3, 1)                  # b c t v -> b t v c
+
+
+def forward(gen: Generator, src_X, cha_X, *, extract_feature: bool = False):
+    """Full generator forward."""
+    src_encoded = encode(gen, src_X)
+    cha_encoded = encode(gen, cha_X)
+    if extract_feature:
+        return (src_encoded, cha_encoded,
+                content_feature(src_encoded), content_feature(cha_encoded))
+    return decode(gen, src_encoded, cha_encoded)

@@ -1,0 +1,83 @@
+"""Build the CUDA sources under ``ops/csrc`` at first use.
+
+Each source compiles on its own with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded with ``ctypes``.  Libraries land
+in ``mocha_sigasia2023_torch/_build/`` (git-ignored), named by the hash of
+the source, so an edited source rebuilds and an unchanged one loads.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Dict
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# per-source record of the last build in this process: seconds, log, path
+BUILD_INFO: Dict[str, Dict] = {}
+
+
+def find_nvcc() -> str:
+    cand = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root:
+            cand.append(os.path.join(root, "bin", "nvcc"))
+    for c in cand:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (looked on PATH, $CUDA_HOME, "
+                       "/usr/local/cuda); the CUDA kernels cannot be built")
+
+
+def library_path(source: str) -> str:
+    """Where the library for ``csrc/<source>`` goes, keyed by its hash."""
+    with open(os.path.join(CSRC_DIR, source), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+
+
+def build(source: str) -> str:
+    """Compile ``csrc/<source>`` unless its library exists; return the
+    library's path.  A failed compile raises with the compiler's output."""
+    out = library_path(source)
+    if os.path.isfile(out):
+        BUILD_INFO.setdefault(source, {"seconds": 0.0, "log": "(cached)",
+                                       "path": out})
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           os.path.join(CSRC_DIR, source)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {source} (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    BUILD_INFO[source] = {"seconds": time.perf_counter() - t0,
+                          "log": (proc.stdout + proc.stderr).strip(),
+                          "path": out}
+    return out
+
+
+def load(source: str) -> ctypes.CDLL:
+    return ctypes.CDLL(build(source))

@@ -1,0 +1,129 @@
+"""The PyTorch port's package boundary, graph tables and numerics guards.
+
+The port (mocha_sigasia2023_torch) must import neither JAX nor anything of
+the JAX package; its graph tables and safe_sqrt must equal the JAX
+package's; its entry points default to CUDA and refuse to fall back.
+"""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from mocha_sigasia2023_tpu.models import graph as jgraph  # noqa: E402
+from mocha_sigasia2023_tpu.ops import numerics as jnum  # noqa: E402
+
+import mocha_sigasia2023_torch  # noqa: E402
+from mocha_sigasia2023_torch.models import graph as tgraph  # noqa: E402
+from mocha_sigasia2023_torch.ops import numerics as tnum  # noqa: E402
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_DIR = os.path.join(REPO, "mocha_sigasia2023_torch")
+
+
+def _port_modules():
+    return ["mocha_sigasia2023_torch"] + [
+        m.name for m in pkgutil.walk_packages(
+            [PORT_DIR], prefix="mocha_sigasia2023_torch.")]
+
+
+def test_import_loads_no_jax():
+    mods = _port_modules()
+    assert "mocha_sigasia2023_torch.runtime.stream" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('mocha_sigasia2023_tpu')]\n"
+        "print(len(sys.modules))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def _imported_names(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_sources_import_no_jax():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT_DIR):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    for path in files:
+        for name in _imported_names(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "flax", "optax",
+                               "mocha_sigasia2023_tpu"), (path, name)
+
+
+@pytest.mark.parametrize("layout", sorted(jgraph.JOINT_PARENTS))
+@pytest.mark.parametrize("strategy", ["uniform", "distance", "spatial"])
+def test_joint_adjacency_equal(layout, strategy):
+    np.testing.assert_array_equal(
+        tgraph.joint_adjacency(layout, strategy, 2),
+        jgraph.joint_adjacency(layout, strategy, 2))
+
+
+@pytest.mark.parametrize("layout", sorted(jgraph.BODYPART_PARTITIONS))
+def test_bodypart_and_pool_tables_equal(layout):
+    for strategy in ("uniform", "distance", "spatial"):
+        np.testing.assert_array_equal(
+            tgraph.bodypart_adjacency(layout, strategy, 1),
+            jgraph.bodypart_adjacency(layout, strategy, 1))
+    np.testing.assert_array_equal(tgraph.pool_matrix(layout),
+                                  jgraph.pool_matrix(layout))
+    np.testing.assert_array_equal(tgraph.unpool_matrix(layout),
+                                  jgraph.unpool_matrix(layout))
+
+
+def test_safe_sqrt_and_unit_denom_match_jax():
+    rng = np.random.RandomState(0)
+    x = np.concatenate([rng.rand(64) * 10, [0.0, 1e-30, 1e-24, 1e-20]])
+    x = x.astype(np.float32)
+    np.testing.assert_array_equal(
+        tnum.safe_sqrt(torch.as_tensor(x)).numpy(),
+        np.asarray(jnum.safe_sqrt(jnp.asarray(x))))
+    np.testing.assert_array_equal(
+        tnum.safe_sqrt(torch.as_tensor(x), 1e-30).numpy(),
+        np.asarray(jnum.safe_sqrt(jnp.asarray(x), 1e-30)))
+    c = rng.randn(16, 3).astype(np.float32)
+    c[0] = 0.0
+    c[1] = 1e-8
+    np.testing.assert_allclose(
+        tnum.safe_unit_denom(torch.as_tensor(c)).numpy(),
+        np.asarray(jnum.safe_unit_denom(jnp.asarray(c))), rtol=1e-6)
+
+
+def test_entry_points_default_to_cuda():
+    from mocha_sigasia2023_torch.device import resolve_device
+    from mocha_sigasia2023_torch.models.generator import (
+        GeneratorConfig, init_generator)
+
+    assert mocha_sigasia2023_torch.__version__
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_generator(GeneratorConfig(encoder_dim=32, decoder_dim=32))
