@@ -4,8 +4,9 @@ Counterpart of mocha_sigasia2023_tpu/ops/attention.py (the Pallas kernel
 ``_attn_kernel``).  ``fused_attention`` computes softmax(q k^T * scale) v
 for (B, H, N, d) queries and (B, H, M, d) keys/values:
 
-* on a CUDA tensor it launches ``csrc/attention.cu`` (fp32 only) or
-  raises — there is no fallback;
+* on a CUDA tensor it launches ``csrc/attention.cu`` (fp32 in and out,
+  products in 3xTF32 on the tensor cores) or raises — there is no
+  fallback;
 * on a CPU tensor it runs :func:`attention_reference`, the plain einsum
   form of mocha_sigasia2023_tpu/models/layers.py:227-232.
 
@@ -25,6 +26,8 @@ from . import build
 SOURCE = "attention.cu"
 MAX_KEYS = 128
 HEAD_DIM_MULTIPLE = 64
+# the kernel's TMA copies need 16-byte-aligned starts and strides
+ALIGN_BYTES = 16
 
 
 def attention_reference(q, k, v, scale: float):
@@ -58,6 +61,15 @@ def _check(q, k, v):
         if t.stride(-1) != 1:
             raise ValueError(f"fused_attention: {name} needs a unit stride "
                              "in its last dimension")
+        step = ALIGN_BYTES // t.element_size()
+        if t.data_ptr() % ALIGN_BYTES or any(
+                n > 1 and s % step for n, s in zip(t.shape[:3],
+                                                   t.stride()[:3])):
+            raise ValueError(
+                f"fused_attention: {name} needs a {ALIGN_BYTES}-byte-aligned"
+                f" start and (batch, head, row) strides in multiples of "
+                f"{step} elements; got offset {t.data_ptr() % ALIGN_BYTES} "
+                f"bytes, strides {t.stride()}")
     b, h, n, d = q.shape
     m = k.shape[2]
     if k.shape != (b, h, m, d) or v.shape != (b, h, m, d):

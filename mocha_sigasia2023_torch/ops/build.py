@@ -3,8 +3,9 @@
 Each source compiles on its own with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``.  Libraries land
 in ``mocha_sigasia2023_torch/_build/`` (git-ignored), named by the hash of
-the source, so an edited source rebuilds and an unchanged one loads.
-Nothing here runs at import time.
+the source and of every local header it includes, so an edited source or
+header rebuilds and an unchanged one loads.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,10 +43,33 @@ def find_nvcc() -> str:
                        "/usr/local/cuda); the CUDA kernels cannot be built")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def local_files(source: str):
+    """``csrc/<source>`` and the local headers it includes (``#include
+    "..."``, followed through headers), in the order first reached."""
+    seen, todo = [], [os.path.join(CSRC_DIR, source)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        todo += [os.path.normpath(os.path.join(os.path.dirname(path),
+                                               name.decode()))
+                 for name in _LOCAL_INCLUDE.findall(text)]
+    return seen
+
+
 def library_path(source: str) -> str:
-    """Where the library for ``csrc/<source>`` goes, keyed by its hash."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the library for ``csrc/<source>`` goes, keyed by the hash of
+    the source, its local headers and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in local_files(source):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 

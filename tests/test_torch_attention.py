@@ -5,6 +5,11 @@ it is held against the JAX Pallas kernel in interpret mode and the JAX
 einsum path at the tolerance the JAX package uses for its kernel
 (tests/test_ops.py: atol 2e-5, rtol 1e-4).  The CUDA kernel itself runs
 only on the card (chip_smoke.py holds it against the plain version).
+
+The kernel's products run in 3xTF32 on the tensor cores.  The tests at the
+end emulate that arithmetic on the CPU and show why the split is there:
+3xTF32 holds the fp32 contract against a float64 reference at the
+main-path widths and at logits near +-40, and single-pass TF32 does not.
 """
 
 import numpy as np
@@ -80,13 +85,18 @@ def test_strided_head_view_matches_contiguous():
 
 
 @pytest.mark.parametrize("case", ["dtype", "head_dim", "keys", "mismatch",
-                                  "stride", "rank"])
+                                  "stride", "rank", "misaligned_start",
+                                  "misaligned_row_stride"])
 def test_kernel_shape_checks_raise(case):
     """What the CUDA kernel does not take is refused before any launch."""
     q = torch.zeros(1, 2, 90, 64)
     k = torch.zeros(1, 2, 90, 64)
     v = torch.zeros(1, 2, 90, 64)
-    if case == "dtype":
+    if case == "misaligned_start":   # 4 bytes past a 16-byte boundary
+        q = torch.zeros(1 * 2 * 90 * 64 + 1)[1:].view(1, 2, 90, 64)
+    elif case == "misaligned_row_stride":   # rows 65 floats apart
+        q = torch.zeros(1, 2, 90, 65)[..., :64]
+    elif case == "dtype":
         q = q.double()
     elif case == "head_dim":
         q, k, v = (torch.zeros(1, 2, 90, 48) for _ in range(3))
@@ -108,3 +118,97 @@ def test_kernel_shapes_of_the_main_path_pass_checks():
         q = torch.empty(shape)
         kv = torch.empty(shape[:2] + (m, shape[3]))
         tattn._check(q, kv, kv)
+
+
+def test_unit_dims_take_any_stride():
+    """A dimension of extent 1 is never stepped, so its stride is free."""
+    q, k, v = (torch.zeros(256).as_strided((1, 1, 1, 64), (7, 5, 3, 1))
+               for _ in range(3))
+    tattn._check(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# 3xTF32 numerics, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+CHUNK = 32   # head-dim columns the kernel sums before adding to the logits
+
+
+def _tf32_round(x):
+    """TF32 rounding as cvt.rna.tf32.f32 does it: round half away from zero
+    on the int32 view (add half a TF32 ulp to the magnitude), then clear
+    the 13 low mantissa bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """What the tensor cores read of an fp32 operand: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel does it: big = tf32(x), small = x - big (read
+    truncated by the MMA), a_small b_big + a_big b_small + a_big b_big."""
+    a_big, b_big = _tf32_round(a), _tf32_round(b)
+    a_small, b_small = _tf32_trunc(a - a_big), _tf32_trunc(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _mm_tf32(a, b):
+    return _tf32_round(a) @ _tf32_round(b)
+
+
+def _attention_emulated(q, k, v, scale, mm):
+    """The kernel's order of work: logits summed per 32-column chunk,
+    softmax in fp32 with the row max subtracted, P v, then / row sum."""
+    logits = sum(mm(q[..., c:c + CHUNK], k[..., c:c + CHUNK].transpose(-1, -2))
+                 for c in range(0, q.shape[-1], CHUNK)) * scale
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    return mm(p, v) * (1.0 / p.sum(-1, keepdim=True))
+
+
+def _exact(q, k, v, scale):
+    q, k, v = (t.double() for t in (q, k, v))
+    return torch.softmax(q @ k.transpose(-1, -2) * scale, -1) @ v
+
+
+def _within_contract(out, ref):
+    return bool(((out.double() - ref).abs() <= ATOL + RTOL * ref.abs()).all())
+
+
+# main-path widths with the batch cut to two heads; q x 8 puts the logits
+# near +-40
+NUMERICS_CASES = [(128, 1.0), (256, 1.0), (256, 8.0)]
+
+
+def _numerics_inputs(d, q_scale):
+    q, k, v = (torch.as_tensor(a) for a in _qkv((1, 2, 90, d), 90, seed=d))
+    return q * q_scale, k, v, d ** -0.5
+
+
+def test_tf32_rounding_emulation():
+    one = 1.0
+    ulp = 2.0 ** -10   # TF32 keeps 10 explicit mantissa bits
+    x = torch.tensor([one + ulp / 2, one + ulp / 2 - 2.0 ** -23,
+                      -(one + ulp / 2), 3.0, one + 3 * ulp / 2],
+                     dtype=torch.float32)
+    want = torch.tensor([one + ulp, one, -(one + ulp), 3.0, one + 2 * ulp],
+                        dtype=torch.float32)
+    got = _tf32_round(x)
+    assert torch.equal(got, want)
+    assert not (got.view(torch.int32) & 0x1FFF).any()
+
+
+@pytest.mark.parametrize("d,q_scale", NUMERICS_CASES)
+def test_3xtf32_emulation_meets_fp32_contract(d, q_scale):
+    q, k, v, scale = _numerics_inputs(d, q_scale)
+    out = _attention_emulated(q, k, v, scale, _mm_3xtf32)
+    assert _within_contract(out, _exact(q, k, v, scale))
+
+
+@pytest.mark.parametrize("d,q_scale", NUMERICS_CASES)
+def test_single_pass_tf32_misses_fp32_contract(d, q_scale):
+    q, k, v, scale = _numerics_inputs(d, q_scale)
+    out = _attention_emulated(q, k, v, scale, _mm_tf32)
+    assert not _within_contract(out, _exact(q, k, v, scale))
