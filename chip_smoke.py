@@ -23,6 +23,16 @@ Phases (any failure exits non-zero):
   5. parity: the same slice at 2 streams x 120 frames, deterministic,
      through the port on the GPU and on the CPU with the same weights;
      positions within 1e-3 and identical nearest-neighbour picks.
+  6. cli: ``characterize.main`` in-process at full width (--random-init)
+     on 64 synthetic BVH clips of 255, 215 and 175 frames (three featurize
+     groups) against a 2048-window character: a warm-up, then 3 timed
+     non-deterministic runs, each checked for 3 groups and for at least
+     the attention launches the groups imply (counters zeroed before each
+     run).  Every one of the 192 output files must read back finite with
+     its own clip's frame count.  BVH parse and export are timed alone on
+     the same files.  --tchunk 60 must match the monolithic run within
+     1e-4 (deterministic), and --src on the GPU must match --src on the CPU
+     within 1e-3 (135 frames, 256-window character).
 
 The line before the last is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -30,11 +40,15 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -44,15 +58,19 @@ sys.path.insert(0, REPO)
 
 import torch  # noqa: E402
 
+from mocha_sigasia2023_torch.cli import characterize  # noqa: E402
 from mocha_sigasia2023_torch.data.dataset import (  # noqa: E402
     compute_norm_stats, window_xy_features)
 from mocha_sigasia2023_torch.data.preprocess import featurize_clip  # noqa: E402
 from mocha_sigasia2023_torch.data.synthetic import make_mocha_bvh_data  # noqa: E402
-from mocha_sigasia2023_torch.data.windows import window_features  # noqa: E402
+from mocha_sigasia2023_torch.data.windows import (  # noqa: E402
+    padded_window_indices, window_features)
+from mocha_sigasia2023_torch.io import bvh  # noqa: E402
 from mocha_sigasia2023_torch.models.cvae import CVAEConfig, init_cvae  # noqa: E402
 from mocha_sigasia2023_torch.models.generator import (  # noqa: E402
     GeneratorConfig, content_feature, init_generator)
 from mocha_sigasia2023_torch.ops import attention, build  # noqa: E402
+from mocha_sigasia2023_torch.runtime import export  # noqa: E402
 from mocha_sigasia2023_torch.runtime import features as rtf  # noqa: E402
 from mocha_sigasia2023_torch.runtime.stream import (  # noqa: E402
     build_consts, make_batch_runner)
@@ -99,8 +117,9 @@ def time_ms(fn, calls=50, batches=5, warmup=5):
     card while the host queues ``calls`` calls; CUDA events around the calls
     then time the device alone, divided by ``calls``, the median over
     ``batches`` such runs.  The host time is the wall time to queue one
-    call.  Raises if the host did not finish queueing before the card was
-    free, which would make the events time the host."""
+    call.  A batch whose host did not finish queueing before the card was
+    free would make the events time the host: it is dropped and the hold
+    doubled; raises if even a 16x hold is too short."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -108,9 +127,10 @@ def time_ms(fn, calls=50, batches=5, warmup=5):
     end = torch.cuda.Event(enable_timing=True)
     hold = torch.cuda.Event(enable_timing=True)
     dev, host = [], []
-    for _ in range(batches):
+    hold_cycles = HOLD_CYCLES
+    while len(dev) < batches:
         hold.record()
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold_cycles)
         start.record()
         t0 = time.perf_counter()
         for _ in range(calls):
@@ -118,9 +138,13 @@ def time_ms(fn, calls=50, batches=5, warmup=5):
         t_host = time.perf_counter() - t0
         end.record()
         end.synchronize()
-        check(t_host * 1e3 < hold.elapsed_time(start),
-              f"timing: queueing {calls} calls took {t_host * 1e3:.2f} ms, "
-              f"longer than the {hold.elapsed_time(start):.2f} ms hold")
+        if t_host * 1e3 >= hold.elapsed_time(start):
+            check(hold_cycles < 16 * HOLD_CYCLES,
+                  f"timing: queueing {calls} calls took {t_host * 1e3:.2f} "
+                  f"ms, longer than the {hold.elapsed_time(start):.2f} ms "
+                  "hold")
+            hold_cycles *= 2
+            continue
         dev.append(start.elapsed_time(end) / calls)
         host.append(t_host * 1e3 / calls)
     return float(np.median(dev)), float(np.median(host))
@@ -453,6 +477,186 @@ def parity_phase(cfg, cvae_cfg, dev, *, streams=2, frames=120,
     return errs
 
 
+# ---------------------------------------------------------------------------
+# the characterize CLI
+# ---------------------------------------------------------------------------
+
+# 64 BVH clips in three raw lengths (three featurize groups), a character
+# of 2048 windows; full width from the port's configs/config.yaml
+CLI_LENGTHS = (255, 215, 175)
+CLI_CLIPS = 64
+CLI_REPEATS = 3
+CLI_PARITY_FRAMES, CLI_PARITY_DB = 135, 256
+GROUPS_LINE = re.compile(r"featurize\+encode: (\d+) group")
+
+
+def write_cli_inputs(root, lengths, db_windows, first_seed):
+    """Synthetic source clips (one per entry of ``lengths``) and a
+    character clip, as BVH files; returns (src dir, character path)."""
+    src = os.path.join(root, "src")
+    os.makedirs(src, exist_ok=True)
+    for i, T in enumerate(lengths):
+        bvh.save(os.path.join(src, f"clip_{i:02d}.bvh"),
+                 make_mocha_bvh_data(T=T, seed=first_seed + i))
+    cha = os.path.join(root, "cha.bvh")
+    bvh.save(cha, make_mocha_bvh_data(T=db_windows + WINDOW_PAD, seed=10_000,
+                                      walk_speed=60.0))
+    return src, cha
+
+
+def run_cli(args):
+    """``characterize.main(args)`` with its printout captured; returns
+    (outputs, wall seconds, the number of featurize groups it reported, the
+    attention launches during the call)."""
+    attention.fused_attention.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = characterize.main(args)
+    wall = time.perf_counter() - t0      # outputs are host arrays: synced
+    launches = attention.fused_attention.launches
+    m = GROUPS_LINE.search(buf.getvalue())
+    return out, wall, (int(m.group(1)) if m else None), launches
+
+
+def read_outputs(out_dir):
+    """Every BVH the CLI wrote: {file name: loaded dict}."""
+    return {f: bvh.load(os.path.join(out_dir, f))
+            for f in sorted(os.listdir(out_dir))}
+
+
+def cli_phase(cfg, dev, root, *, clips=CLI_CLIPS, db_windows=DB_WINDOWS,
+              repeats=CLI_REPEATS, config=None):
+    """Phase 6.  ``config`` (a config file for ``cfg``) defaults to the
+    port's own, which has the full widths."""
+    lengths = [CLI_LENGTHS[i % len(CLI_LENGTHS)] for i in range(clips)]
+    src, cha = write_cli_inputs(root, lengths, db_windows, first_seed=200)
+    n_w = [len(padded_window_indices(L, 60, 1)[0]) for L in lengths]
+    frames = sum(n_w)
+    cfg_args = ["--config", config] if config else []
+    base = ["--src-dir", src, "--cha", cha, "--random-init",
+            "--device", dev.type] + cfg_args
+
+    def args(out, *extra):
+        return base + ["--out", os.path.join(root, out), *extra]
+
+    group_sizes = {L: lengths.count(L) for L in set(lengths)}
+    group_nw = {L: n for L, n in zip(lengths, n_w)}
+    expected = (sum(-(-S * group_nw[L] // 128) for L, S in group_sizes.items())
+                * cfg.encoder_depth
+                + ((max(n_w) - 1) * 2 + 1) * cfg.decoder_depth)
+
+    run_cli(args("warmup"))
+    runs = []
+    for r in range(repeats):
+        out, wall, n_groups, launches = run_cli(
+            args(f"run{r}", "--seed", str(100 + r)))
+        log(f"[cli] repeat {r}: main() {wall:.3f} s for {frames} frames, "
+            f"{n_groups} groups, attention launches {launches}")
+        check(n_groups == len(CLI_LENGTHS),
+              f"cli: {n_groups} featurize groups, want {len(CLI_LENGTHS)}")
+        check(launches >= expected,
+              f"cli: attention launched {launches} times, expected at least "
+              f"{expected}")
+        runs.append((wall, launches))
+
+    # every output: present, readable, finite, its own clip's frame count
+    outs = read_outputs(os.path.join(root, "run0"))
+    check(len(outs) == 3 * clips, f"cli: {len(outs)} output files")
+    counts = []
+    for i, n in enumerate(n_w):
+        for prefix in ("Src_", "Ours_", "CM_"):
+            name = (f"Src_clip_{i:02d}.bvh" if prefix == "Src_"
+                    else f"{prefix}clip_{i:02d}_To_cha.bvh")
+            check(name in outs, f"cli: {name} was not written")
+            d = outs[name]
+            check(d["rotations"].shape[0] == n,
+                  f"cli: {name} has {d['rotations'].shape[0]} frames, want "
+                  f"{n}")
+            check(bool(np.isfinite(d["rotations"]).all()
+                       and np.isfinite(d["positions"]).all()),
+                  f"cli: {name} is not finite")
+            counts.append(d["rotations"].shape[0])
+    check(len(set(counts)) > 1, "cli: every clip has the longest clip's "
+          "frame count")
+
+    # BVH parse and export, timed alone on the same files
+    t0 = time.perf_counter()
+    loaded = [bvh.load(os.path.join(src, f)) for f in sorted(os.listdir(src))]
+    bvh.load(cha)
+    parse_s = time.perf_counter() - t0
+    parents = np.concatenate([[-1], np.asarray(loaded[0]["parents"]) + 1])
+    export_dir = os.path.join(root, "export")
+    os.makedirs(export_dir)
+    t0 = time.perf_counter()
+    for i, n in enumerate(n_w):
+        for key in ("src", "ik", "cm"):
+            export.save_characterized_bvh(
+                os.path.join(export_dir, f"{key}_{i:02d}.bvh"),
+                out[f"{key}_pos"][:n, i], out[f"{key}_rot"][:n, i], parents,
+                loaded[0]["names"])
+    export_s = time.perf_counter() - t0
+
+    # --tchunk against the monolithic run, deterministic
+    _, mono_s, _, _ = run_cli(args("mono", "--deterministic"))
+    _, chunk_s, _, _ = run_cli(args("tchunk", "--deterministic",
+                                    "--tchunk", "60"))
+    mono = read_outputs(os.path.join(root, "mono"))
+    chunked = read_outputs(os.path.join(root, "tchunk"))
+    check(sorted(mono) == sorted(chunked), "cli: --tchunk wrote other files")
+    tchunk_err = max(float(np.abs(chunked[f][k] - mono[f][k]).max())
+                     for f in mono for k in ("rotations", "positions"))
+    log(f"[cli] --tchunk 60 vs monolithic, deterministic: max abs "
+        f"{tchunk_err:.3e} over {len(mono)} files (monolithic {mono_s:.3f} s,"
+        f" chunked {chunk_s:.3f} s)")
+    check(tchunk_err <= 1e-4, f"cli: --tchunk differs by {tchunk_err:.3e}")
+
+    parity = cli_parity(root, dev, cfg_args)
+
+    runs.sort()
+    wall, launches = runs[len(runs) // 2]
+    result = {"clips": clips, "raw_lengths": list(CLI_LENGTHS),
+              "frames": frames, "database_windows": db_windows,
+              "repeats": repeats, "main_s": wall,
+              "cli_frames_per_s": frames / wall,
+              "cli_frames_per_s_range": [frames / runs[-1][0],
+                                         frames / runs[0][0]],
+              "bvh_parse_s": parse_s, "bvh_files_parsed": len(loaded) + 1,
+              "export_s": export_s, "bvh_files_written": 3 * clips,
+              "parse_export_share": (parse_s + export_s) / wall,
+              "featurize_groups": len(CLI_LENGTHS),
+              "attention_launches": launches,
+              "expected_launches_at_least": expected,
+              "tchunk_max_abs": tchunk_err, "parity": parity}
+    log(f"[cli] {json.dumps(result)}")
+    return result, launches
+
+
+def cli_parity(root, dev, extra):
+    """``--src``, deterministic, through main() on ``dev`` and on the CPU
+    with the same seeded weights: the four output streams compared."""
+    d = os.path.join(root, "parity")
+    src, cha = write_cli_inputs(d, [CLI_PARITY_FRAMES], CLI_PARITY_DB,
+                                first_seed=300)
+    clip = os.path.join(src, "clip_00.bvh")
+    outs = []
+    for name in (dev.type, "cpu"):
+        out, _, _, _ = run_cli(
+            ["--src", clip, "--cha", cha, "--random-init", "--deterministic",
+             "--device", name, "--out", os.path.join(d, name), *extra])
+        outs.append(out)
+    g, c = outs
+    errs = {k: float(np.abs(g[k] - c[k]).max())
+            for k in ("src_pos", "trans_pos", "ik_pos", "cm_pos")}
+    same_picks = bool(np.array_equal(g["nn_index"], c["nn_index"]))
+    log(f"[cli] --src parity {dev.type} vs cpu, {len(g['src_pos'])} frames: "
+        f"max abs "
+        f"position error {json.dumps(errs)}; NN picks identical: "
+        f"{same_picks}")
+    check(max(errs.values()) <= 1e-3, f"cli parity: positions differ {errs}")
+    return {"max_abs_position_err": errs, "nn_picks_identical": same_picks}
+
+
 def build_phase():
     t0 = time.perf_counter()
     attention.load_library()
@@ -492,6 +696,16 @@ def main():
 
     parity_phase(cfg, cvae_cfg, dev)
 
+    with tempfile.TemporaryDirectory() as root:
+        cli_result, cli_launches = cli_phase(cfg, dev, root)
+    lo, hi = cli_result["cli_frames_per_s_range"]
+    log(f"[cli] median of {CLI_REPEATS}: {cli_result['cli_frames_per_s']:.1f}"
+        f" frames/s through main() (range {lo:.1f}-{hi:.1f}), slice e2e "
+        f"{slice_result['e2e_frames_per_s']:.1f} frames/s; BVH parse "
+        f"{cli_result['bvh_parse_s']:.3f} s + export "
+        f"{cli_result['export_s']:.3f} s = "
+        f"{cli_result['parse_export_share']:.3f} of main(); on {card}")
+
     main_row = next(r for r in attn_rows if r["shape"] == "decoder streams")
     kernels = [{
         "name": "attention",
@@ -499,6 +713,7 @@ def main():
         "source": "mocha_sigasia2023_torch/ops/csrc/attention.cu",
         "replaces": "mocha_sigasia2023_tpu/ops/attention.py:37",
         "launches": launches,
+        "launches_by_path": {"slice": launches, "cli": cli_launches},
         "max_abs_err": max([r["max_abs_err"] for r in attn_rows]
                            + [edge_max_abs]),
         "ms": main_row["ms"],

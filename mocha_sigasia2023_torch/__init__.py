@@ -1,15 +1,19 @@
 """mocha_sigasia2023_torch — the PyTorch/CUDA port of mocha_sigasia2023_tpu.
 
 The serving path of the JAX package, rebuilt on PyTorch for an NVIDIA
-H100: raw clip arrays -> featurize -> stride-1 windows -> generator
-encode -> batched per-frame stream step -> poses.  The layout mirrors the
+H100: BVH clips -> featurize -> stride-1 windows -> generator encode ->
+batched per-frame stream step -> poses -> BVH.  The layout mirrors the
 JAX package so each module's counterpart is easy to find:
 
+cli         ``python -m mocha_sigasia2023_torch.cli.characterize``.
+io          BVH read/write.
+utils       the config reader (a YAML subset, no PyYAML) and directories.
 kinematics  quaternion algebra, FK/IK, the foot-contact springs.
 data        synthetic clips, windowing, clip featurization, window features.
-models      skeleton graph tables, layers, generator, CVAE, weight import.
-runtime     context matching, stream featurization, the batched stream
-            runner.
+models      skeleton graph tables, layers, generator, CVAE, weight import
+            (JAX pytrees and the reference's .pt checkpoints).
+runtime     context matching, stream featurization (also ragged batches),
+            the batched and single-clip stream runners, BVH export.
 ops         numerics guards and the hand-written CUDA attention kernel.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -209,6 +209,28 @@ def from_scaled_angle_axis(v, eps=1e-5):
     return exp(v / 2.0, eps)
 
 
+def to_euler(q, order="xyz"):
+    """Quaternion -> Euler angles (radians); 'xyz' and 'yzx'."""
+    q0, q1, q2, q3 = q[..., 0:1], q[..., 1:2], q[..., 2:3], q[..., 3:4]
+    if order == "xyz":
+        return torch.cat([
+            torch.atan2(2.0 * (q0 * q1 + q2 * q3),
+                        1.0 - 2.0 * (q1 * q1 + q2 * q2)),
+            torch.asin(torch.clamp(2.0 * (q0 * q2 - q3 * q1), -1.0, 1.0)),
+            torch.atan2(2.0 * (q0 * q3 + q1 * q2),
+                        1.0 - 2.0 * (q2 * q2 + q3 * q3)),
+        ], dim=-1)
+    if order == "yzx":
+        return torch.cat([
+            torch.atan2(2.0 * (q1 * q0 - q2 * q3),
+                        -q1 * q1 + q2 * q2 - q3 * q3 + q0 * q0),
+            torch.atan2(2.0 * (q2 * q0 - q1 * q3),
+                        q1 * q1 - q2 * q2 - q3 * q3 + q0 * q0),
+            torch.asin(torch.clamp(2.0 * (q1 * q2 + q3 * q0), -1.0, 1.0)),
+        ], dim=-1)
+    raise NotImplementedError(f"Cannot convert to ordering {order!r}")
+
+
 # ---------------------------------------------------------------------------
 # Forward / inverse kinematics
 # ---------------------------------------------------------------------------

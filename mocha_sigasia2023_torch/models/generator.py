@@ -68,6 +68,22 @@ class GeneratorConfig(NamedTuple):
     def num_tokens(self) -> int:
         return self.nbody * self.num_temp
 
+    @staticmethod
+    def from_dict(d) -> "GeneratorConfig":
+        """The config file's ``model`` section -> GeneratorConfig."""
+        g = d.get("graph", {})
+        joint = g.get("joint", {})
+        body = g.get("bodypart", {})
+        base = GeneratorConfig()
+        widths = base._fields[:base._fields.index("dropout")]
+        return base._replace(
+            **{k: d[k] for k in widths if k in d},
+            layout=joint.get("layout", base.layout),
+            joint_strategy=joint.get("strategy", base.joint_strategy),
+            joint_max_hop=joint.get("max_hop", base.joint_max_hop),
+            bodypart_strategy=body.get("strategy", base.bodypart_strategy),
+            bodypart_max_hop=body.get("max_hop", base.bodypart_max_hop))
+
 
 def _meanpool_taps(k: int, tps: int) -> np.ndarray:
     """(k + tps - 1, k) map from a temporal kernel to the kernel of the

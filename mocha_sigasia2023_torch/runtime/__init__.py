@@ -1,3 +1,4 @@
-"""Context matching, stream featurization and the batched stream runner."""
+"""Context matching, stream featurization, the stream runners and BVH
+export."""
 
-from . import features, matching, stream
+from . import export, features, matching, stream

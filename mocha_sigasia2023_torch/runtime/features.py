@@ -1,7 +1,7 @@
 """Clip -> per-window encoder features for the streaming runtime.
 
 Counterpart of mocha_sigasia2023_tpu/runtime/features.py:126-292, :408,
-:488 and :571.  Raw clip arrays are featurized (one batched pass over all
+:437, :488 and :571.  Raw clip arrays are featurized (one batched pass over all
 clips), world FK runs once per frame, stride-1 windows are gathered from
 those per-frame arrays in chunks of ``chunk`` windows (128 by default),
 each chunk is encoded, and only the window-last rows the stream step reads
@@ -175,6 +175,48 @@ def batch_stream_features_device(clips: Sequence[Dict], gen, norm, *,
     frame0 = {k: v[:, 0] for k, v in out.items()}
     xs = {k: v[:, 1:].transpose(0, 1).contiguous() for k, v in out.items()}
     return frame0, xs
+
+
+@torch.no_grad()
+def batch_stream_features_ragged(clips: Sequence[Dict], gen, norm, *,
+                                 window: int = 60, chunk: int = 128,
+                                 emit_cnt: bool = True, device=None):
+    """Featurize + encode clips of mixed lengths: clips are grouped by
+    frame count and each group goes through
+    :func:`batch_stream_features_device` (grouping is exact; padding raw
+    frames would shift the savgol and velocity edge handling).  Each
+    group's xs is edge-padded with its last row up to the longest clip's
+    window count, and the streams come back in input order.
+
+    Returns ``(frame0, xs, n_windows, n_groups)``: the runner's inputs, each
+    clip's true window count (to trim the runner's outputs with) and the
+    number of groups."""
+    dev = resolve_device(device)
+    lengths = [int(np.asarray(c["rotations"]).shape[0]) for c in clips]
+    groups: Dict[int, list] = {}
+    for i, L in enumerate(lengths):
+        groups.setdefault(L, []).append(i)
+    n_w = {L: len(padded_window_indices(L, window, 1)[0]) for L in groups}
+    w_max = max(n_w.values())
+
+    f0_parts, xs_parts, order = [], [], []
+    for L in sorted(groups):
+        idxs = groups[L]
+        frame0_g, xs_g = batch_stream_features_device(
+            [clips[i] for i in idxs], gen, norm, window=window, chunk=chunk,
+            emit_cnt=emit_cnt, device=dev)
+        pad_t = w_max - n_w[L]
+        if pad_t:
+            xs_g = {k: torch.cat([v, v[-1:].expand((pad_t,) + v.shape[1:])])
+                    for k, v in xs_g.items()}
+        f0_parts.append(frame0_g)
+        xs_parts.append(xs_g)
+        order += idxs
+    inv = torch.as_tensor(np.argsort(np.asarray(order)), device=dev)
+    frame0 = {k: torch.cat([p[k] for p in f0_parts])[inv] for k in f0_parts[0]}
+    xs = {k: torch.cat([p[k] for p in xs_parts], dim=1)[:, inv]
+          for k in xs_parts[0]}
+    return frame0, xs, [n_w[L] for L in lengths], len(groups)
 
 
 @torch.no_grad()

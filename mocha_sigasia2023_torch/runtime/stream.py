@@ -1,7 +1,9 @@
 """The streaming characterization loop, batched over streams.
 
-Counterpart of mocha_sigasia2023_tpu/runtime/stream.py (default step only:
-no fused or lean decodes, no bf16 modes) and of ``build_consts`` in
+Counterpart of mocha_sigasia2023_tpu/runtime/stream.py (default step,
+``compute_cm``, the single-character batch runner with ``runner.chunked``,
+``characterize_clip``; no fused or lean decodes, no bf16 modes) and of
+``build_consts`` in
 mocha_sigasia2023_tpu/cli/characterize.py:81-112.  Per frame and stream:
 nearest-neighbour context match (hoisted out of the frame loop), CVAE prior
 sample, two generator decodes, root integration under the velocity-ratio
@@ -220,12 +222,15 @@ def _ik_fixup(parents, contact_bones, ik: IKConfig, dt,
 
 def make_stream_step(gen, cvae, consts: RuntimeConsts, parents, *,
                      contact_bones=(5, 24), ik: IKConfig = IKConfig(),
-                     dt: float = 1.0 / 60.0, deterministic: bool = False):
+                     dt: float = 1.0 / 60.0, deterministic: bool = False,
+                     compute_cm: bool = True):
     """The batched per-frame step: step(carry, x, generator) -> (carry,
     outputs), where ``x`` holds one frame of stream inputs (leading S) and
     its precomputed ``nn_idx``; ``generator`` draws the CVAE noise unless
-    ``deterministic``."""
+    ``deterministic``.  With ``compute_cm=False`` (serving) the NN-stream
+    decode is skipped and the CM outputs are the CVAE stream's."""
     use_cvae = cvae is not None
+    decode_cm = use_cvae and compute_cm
 
     def step(carry: StreamCarry, x: Dict, generator=None):
         idx = x["nn_idx"]
@@ -248,7 +253,7 @@ def make_stream_step(gen, cvae, consts: RuntimeConsts, parents, *,
 
         t_pos, t_rot, t_vel, t_ang, t_speed = _decode_frame(
             gen, consts, x["encoded"], cvae_cha_encoded)
-        if use_cvae:
+        if decode_cm:
             c_pos, c_rot, c_vel, c_ang, c_speed = _decode_frame(
                 gen, consts, x["encoded"], nn_cha_encoded)
         else:
@@ -373,7 +378,8 @@ def init_stream(gen, consts: RuntimeConsts, parents, frame0: Dict, *,
 def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
                       contact_bones=(5, 24), ik: IKConfig = IKConfig(),
                       dt: float = 1.0 / 60.0, deterministic: bool = False,
-                      root_dtype=torch.float32, device=None):
+                      compute_cm: bool = True, root_dtype=torch.float32,
+                      device=None):
     """Batched-streams characterizer for one character.
 
     Returns ``runner(frame0, xs, generator=None)`` for frame0 leaves
@@ -383,6 +389,12 @@ def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
     (frame, stream) match runs before the frame loop, ``MATCH_TCHUNK``
     frames per matmul.  ``generator`` (a ``torch.Generator`` on the
     device) draws the CVAE noise and is required unless ``deterministic``.
+
+    ``runner.chunked(frame0, xs, generator=None, tchunk=60)`` takes
+    host-resident inputs and uploads ``tchunk`` frames of xs at a time, so
+    the device holds about two chunks of the (T, S, tokens, dim) stream
+    instead of all of it; the carry crosses chunk boundaries unchanged and
+    the outputs equal the monolithic runner's.
     """
     dev = resolve_device(device)
     check_module_device(gen, dev, "generator")
@@ -396,7 +408,8 @@ def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
     contact_bones = tuple(int(b) for b in contact_bones)
     step = make_stream_step(gen, cvae, consts, parents,
                             contact_bones=contact_bones, ik=ik, dt=dt,
-                            deterministic=deterministic)
+                            deterministic=deterministic,
+                            compute_cm=compute_cm)
 
     def match(cnt):
         """(Tc, S, tok, dim) cnt -> (Tc, S) database indices."""
@@ -415,24 +428,89 @@ def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
                              else gen_mod.content_feature(chunk)))
         return torch.cat(out)
 
-    @torch.no_grad()
-    def runner(frame0: Dict, xs: Dict, generator: Optional[torch.Generator]
-               = None) -> Dict[str, torch.Tensor]:
+    def check_generator(generator):
         if cvae is not None and not deterministic and generator is None:
             raise ValueError("runner: pass a torch.Generator for the CVAE "
                              "noise, or build with deterministic=True")
+
+    def start(frame0):
         idx0 = match_frames({k: v[None] for k, v in frame0.items()})[0]
+        return init_stream(gen, consts, parents, dict(frame0, nn_idx=idx0),
+                           contact_bones=contact_bones, dt=dt,
+                           root_dtype=root_dtype)
+
+    def scan(carry, xs, generator, outs):
+        """The step over xs's frames, appending each frame's outputs."""
         idx_xs = match_frames(xs)
-        carry, out0 = init_stream(gen, consts, parents,
-                                  dict(frame0, nn_idx=idx0),
-                                  contact_bones=contact_bones, dt=dt,
-                                  root_dtype=root_dtype)
-        outs = [out0]
         for t in range(idx_xs.shape[0]):
             x = {k: v[t] for k, v in xs.items()}
             x["nn_idx"] = idx_xs[t]
             carry, o = step(carry, x, generator)
             outs.append(o)
-        return {k: torch.stack([o[k] for o in outs]) for k in out0}
+        return carry
 
+    def stack(outs):
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    @torch.no_grad()
+    def runner(frame0: Dict, xs: Dict, generator: Optional[torch.Generator]
+               = None) -> Dict[str, torch.Tensor]:
+        check_generator(generator)
+        carry, out0 = start(frame0)
+        outs = [out0]
+        scan(carry, xs, generator, outs)
+        return stack(outs)
+
+    def upload(a):
+        """Host array or tensor -> float32 on the device; CUDA copies go
+        from pinned memory without blocking the host."""
+        a = torch.as_tensor(a, dtype=torch.float32)
+        if dev.type == "cuda":
+            return a.pin_memory().to(dev, non_blocking=True)
+        return a.to(dev)
+
+    @torch.no_grad()
+    def chunked(frame0: Dict, xs: Dict,
+                generator: Optional[torch.Generator] = None,
+                tchunk: int = 60) -> Dict[str, torch.Tensor]:
+        check_generator(generator)
+        if tchunk < 1:
+            raise ValueError(f"chunked: tchunk must be >= 1, got {tchunk}")
+        T = len(next(iter(xs.values())))
+        carry, out0 = start({k: upload(v) for k, v in frame0.items()})
+        outs = [out0]
+        for s in range(0, T, tchunk):
+            carry = scan(carry, {k: upload(v[s:s + tchunk])
+                                 for k, v in xs.items()}, generator, outs)
+        return stack(outs)
+
+    runner.chunked = chunked
     return runner
+
+
+def characterize_clip(gen, cvae, consts: RuntimeConsts, parents,
+                      stream_feats: Dict, *, contact_bones=(5, 24),
+                      ik: IKConfig = IKConfig(), dt: float = 1.0 / 60.0,
+                      deterministic: bool = False, compute_cm: bool = True,
+                      root_dtype=torch.float64,
+                      generator: Optional[torch.Generator] = None,
+                      device=None) -> Dict[str, np.ndarray]:
+    """Characterize one clip: the frame-0 init, then the step over the
+    remaining frames.  ``stream_feats`` holds the clip's per-window stream
+    features with leading T (``clip_stream_features_device``).  Roots
+    integrate in float64 by default (the offline path, with the long-horizon
+    1e-3 bound).  ``generator`` draws the CVAE noise; by default one seeded
+    with 1777 on the device.  Returns NumPy arrays (T, ...)."""
+    dev = resolve_device(device)
+    feats = {k: v[None] for k, v in stream_feats.items()
+             if k in FEAT_KEYS or k == "cnt"}
+    frame0, xs = stack_stream_inputs(feats, device=dev)
+    runner = make_batch_runner(gen, cvae, consts, parents,
+                               contact_bones=contact_bones, ik=ik, dt=dt,
+                               deterministic=deterministic,
+                               compute_cm=compute_cm, root_dtype=root_dtype,
+                               device=dev)
+    if generator is None and not deterministic:
+        generator = torch.Generator(device=dev).manual_seed(1777)
+    out = runner(frame0, xs, generator)
+    return {k: v[:, 0].cpu().numpy() for k, v in out.items()}

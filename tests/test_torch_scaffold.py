@@ -8,6 +8,7 @@ package's; its entry points default to CUDA and refuse to fall back.
 import ast
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -39,13 +40,15 @@ def _port_modules():
 
 def test_import_loads_no_jax():
     mods = _port_modules()
-    assert "mocha_sigasia2023_torch.runtime.stream" in mods
+    for m in ("runtime.stream", "runtime.export", "cli.characterize",
+              "io.bvh", "utils.config"):
+        assert "mocha_sigasia2023_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m.startswith('mocha_sigasia2023_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'yaml', 'mocha_sigasia2023_tpu')]\n"
         "print(len(sys.modules))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -69,11 +72,16 @@ def test_sources_import_no_jax():
         dirs[:] = [d for d in dirs if d != "_build"]   # build output
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    for sub in ("cli", "io", "utils"):
+        assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax",
+            assert top not in ("jax", "jaxlib", "flax", "optax", "yaml",
                                "mocha_sigasia2023_tpu"), (path, name)
+        # nor does it join the JAX package's directory into a path
+        assert not re.search(r"""['"]mocha_sigasia2023_tpu['"]""",
+                             open(path).read()), path
 
 
 @pytest.mark.parametrize("layout", sorted(jgraph.JOINT_PARENTS))
@@ -114,10 +122,14 @@ def test_safe_sqrt_and_unit_denom_match_jax():
         np.asarray(jnum.safe_unit_denom(jnp.asarray(c))), rtol=1e-6)
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
+    from mocha_sigasia2023_torch.cli import characterize
+    from mocha_sigasia2023_torch.data.synthetic import make_mocha_bvh_data
     from mocha_sigasia2023_torch.device import resolve_device
+    from mocha_sigasia2023_torch.io import bvh
     from mocha_sigasia2023_torch.models.generator import (
         GeneratorConfig, init_generator)
+    from mocha_sigasia2023_torch.runtime import features, stream
 
     assert mocha_sigasia2023_torch.__version__
     assert resolve_device("cpu") == torch.device("cpu")
@@ -128,3 +140,17 @@ def test_entry_points_default_to_cuda():
         resolve_device(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_generator(GeneratorConfig(encoder_dim=32, decoder_dim=32))
+    small = GeneratorConfig(encoder_dim=32, decoder_dim=32)
+    gen = init_generator(small, device="cpu")
+    clip = make_mocha_bvh_data(T=80, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        features.batch_stream_features_ragged([clip], gen, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream.characterize_clip(gen, None, None, None, {})
+    bvh.save(str(tmp_path / "c.bvh"), clip)
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        characterize.main(["--src", str(tmp_path / "c.bvh"), "--cha",
+                           str(tmp_path / "c.bvh"), "--random-init",
+                           "--out", str(out)])
+    assert not out.exists()   # nothing ran on the CPU
