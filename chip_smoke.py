@@ -2,18 +2,23 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero):
+Phases (any failure exits non-zero; each prints its wall time):
   1. card: torch version, card name and power limit; TF32 switched off
      for matmuls and cuDNN (the savgol and temporal convs go through cuDNN).
-  2. build: compile every CUDA source of the port from this checkout.
-  3. kernels: each kernel against its plain PyTorch version at the shapes
-     the serving path gives it, atol 2e-5 / rtol 1e-4, with the device
-     time per call (CUDA events around 50 calls queued behind a spinning
-     kernel) of the kernel, the plain version and one PyTorch library call,
-     the kernel's roofline share and the wrapper's host time a call.
-     Untimed, the same check at edge shapes (N in {1, 17, 128, 200}, M in
-     {1, 45, 128}, d in {64, 128, 256}) and with logits near +-40; a
-     misaligned view must be refused.
+  2. build: compile every CUDA source of the port from this checkout, one
+     nvcc per source, started together.
+  3. kernels, then kernels (bf16): each instance of the attention kernel
+     against its plain PyTorch version at the shapes the serving path
+     gives it (float32 at atol 2e-5 / rtol 1e-4; bfloat16 compared in
+     float32 at atol 8e-3 / rtol 8e-3), with the device time per call
+     (CUDA events around 50 calls queued behind a spinning kernel) of the
+     kernel, the plain version and one PyTorch library call (SDPA in the
+     same dtype), the kernel's roofline share and the wrapper's host time
+     a call.  Untimed, the same check at edge shapes (N in {1, 17, 128,
+     200}, M in {1, 45, 128}, d in {64, 128, 256}) and with logits near
+     +-40; a misaligned view must be refused.  Each main-path shape is
+     held to the plain version again on 300 more launches, each edge
+     shape on 10, so that a race that fails some launches shows.
   4. slice: the full-width model (random weights from a NumPy seed) serves
      64 synthetic clips x 240 frames against a 2048-window character
      database: featurize -> windows -> encode -> batched stream runner with
@@ -32,7 +37,29 @@ Phases (any failure exits non-zero):
      its own clip's frame count.  BVH parse and export are timed alone on
      the same files.  --tchunk 60 must match the monolithic run within
      1e-4 (deterministic), and --src on the GPU must match --src on the CPU
-     within 1e-3 (135 frames, 256-window character).
+     within 1e-3 (135 frames, 256-window character).  Then one --bf16 run
+     on the same files: every output finite with its clip's frame count,
+     the sources through the bf16 kernel.
+  7. multi: the slice's 64 x 240 streams against a stack of 30 synthetic
+     characters (2048, 2032, ..., 1584 windows, each its own clip and
+     norms; about 11 GB of float32 database on the card), stream s served
+     character s % 30: featurize + the multi-character runner, 3 timed
+     repeats with the launch check, peak memory; deterministic,
+     runner.chunked (tchunk 60) equal to the monolithic run within 1e-4,
+     streams 0 and 1 held to dedicated single-character runners (positions
+     within 1e-3, identical picks), and the session from a bf16 copy of
+     the stack (peak memory, picks at least 90% identical).
+  8. live: LiveCharacterizer at full width, one stream, 1,010 frames of a
+     synthetic clip, a 2048-window character: the first 12 frames
+     (deterministic) held to the batch runner at S = 1 within 1e-5 / 1e-4;
+     p50/p99 wall time of push_frame and of push_frame_pipelined (+ flush)
+     against the 16.7 ms frame budget; attention launches exactly 2 per
+     frame per decoder layer, half that on frame 0.
+  9. bf16: the slice with bf16 weights and compute_dtype=bf16, 3 timed
+     repeats, every launch on the bf16 kernel and none on the float32 one;
+     deterministic at 2 streams x 120 frames, bf16 within 2e-3 of float32
+     (picks at least 90% identical), cvae_dtype=bf16 within 2e-3 with
+     identical picks, lean_decode and fuse_decodes within 1e-4.
 
 The line before the last is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -41,6 +68,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import io
 import json
@@ -72,15 +100,29 @@ from mocha_sigasia2023_torch.models.generator import (  # noqa: E402
 from mocha_sigasia2023_torch.ops import attention, build  # noqa: E402
 from mocha_sigasia2023_torch.runtime import export  # noqa: E402
 from mocha_sigasia2023_torch.runtime import features as rtf  # noqa: E402
+from mocha_sigasia2023_torch.runtime.live import (  # noqa: E402
+    LiveCharacterizer)
 from mocha_sigasia2023_torch.runtime.stream import (  # noqa: E402
-    build_consts, make_batch_runner)
+    build_consts, cast_database, make_batch_runner, stack_consts,
+    stack_stream_inputs)
 
-# H100 SXM data sheet: HBM bandwidth, dense TF32 tensor-core rate, and the
-# fp32 rate outside the tensor cores
+# H100 SXM data sheet: HBM bandwidth, dense TF32 and bf16 tensor-core rates,
+# and the fp32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 ATOL, RTOL = 2e-5, 1e-4
+# the bf16 kernel against its plain version, compared in fp32: the two
+# differ by the fp32 summation order and by P's bf16 rounding flipping where
+# that order moves a value across a rounding boundary
+ATOL_BF16, RTOL_BF16 = 8e-3, 8e-3
+# dtype -> (tolerance, tensor-core rate, launch counter of fused_attention)
+KERNEL_DTYPES = {
+    torch.float32: ((ATOL, RTOL), PEAK_TF32_FLOPS, "launches"),
+    torch.bfloat16: ((ATOL_BF16, RTOL_BF16), PEAK_BF16_FLOPS,
+                     "launches_bf16"),
+}
 WINDOW_PAD = 60 // 4   # featurize yields T - window//4 windows per clip
 # the slice: the JAX package's e2e bench workload (bench.py:399-530)
 STREAMS, FRAMES, DB_WINDOWS = 64, 240, 2048
@@ -94,6 +136,25 @@ def log(msg):
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def check_launches(dev, cond, msg):
+    """A launch-count check: it holds on the card; a CPU rehearsal's calls
+    launch nothing and count nothing."""
+    check(dev.type != "cuda" or cond, msg)
+
+
+def reset_peak_memory(dev):
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_memory_gb(dev):
+    """torch.cuda.max_memory_allocated in GB (not measured on the CPU)."""
+    if dev.type != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated() / 1e9
 
 
 def card_line() -> str:
@@ -162,6 +223,13 @@ ATTN_SHAPES = [
 ]
 
 
+# launches held to the plain version again after the first check, at each
+# main-path shape and each edge shape: without its proxy fence the bf16
+# kernel's ring raced, wrong in about 4 launches in 10 at M = 45 and 1 in
+# 400 at the decoder shape on an H100 (scripts/attention_stress.py), and
+# one check a shape missed it in two runs of three
+MAIN_REPEATS, EDGE_REPEATS = 300, 10
+
 # untimed edge shapes: (batch, heads, query rows, key rows, head dim); the
 # last two take two row blocks and the largest shared-memory footprint
 ATTN_EDGE_SHAPES = ([(2, 3, n, m, d) for n in (1, 17) for m in (1, 45, 128)
@@ -177,96 +245,134 @@ DESIGN = ("one CTA per (batch, head) for N <= 96; q|k then v staged in "
           "32-column chunks by TMA (128-byte swizzle) through a 3-stage "
           "mbarrier ring; q k^T and P v as 3xTF32 mma.sync.m16n8k8 with fp32 "
           "accumulation; softmax and P in registers")
+DESIGN_BF16 = ("the float32 kernel's CTA and ring with bf16 operands: "
+               "64-column (128-byte) TMA chunks, q k^T and P v as single-pass "
+               "mma.sync.m16n8k16 bf16 with fp32 accumulation, P normalised "
+               "and rounded to bf16 in registers, v fragments by "
+               "ldmatrix.trans, output rounded to bf16")
 
 
-def attention_bound_ms(b, h, n, m, d):
+def attention_bound_ms(b, h, n, m, d, dtype=torch.float32):
     """Least time for the call on an H100 SXM: each input read once and the
     output written once at the HBM rate, against the two products
-    (4*B*H*N*M*d operations) at the dense TF32 tensor-core rate plus the
-    softmax (scale, max, exp and divide per logit) at the fp32 rate."""
-    nbytes = 4 * (b * h * n * d * 2 + b * h * m * d * 2)
+    (4*B*H*N*M*d operations) at the dense tensor-core rate of the dtype
+    (TF32 for float32, bf16 for bfloat16) plus the softmax (scale, max, exp
+    and divide per logit) at the fp32 rate."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    nbytes = esize * (b * h * n * d * 2 + b * h * m * d * 2)
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = (4 * b * h * n * m * d / PEAK_TF32_FLOPS
+    t_ops = (4 * b * h * n * m * d / KERNEL_DTYPES[dtype][1]
              + 4 * b * h * n * m / PEAK_FP32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def head_views(rng, b, h, n, m, d, dev):
+def head_views(rng, b, h, n, m, d, dev, dtype=torch.float32):
     """q, k, v as the serving path hands them over: (B, N, H, d)
     projections viewed as (B, H, N, d)."""
     def make(rows_):
         return torch.as_tensor(rng.standard_normal(
-            (b, rows_, h, d)).astype(np.float32), device=dev).transpose(1, 2)
+            (b, rows_, h, d)).astype(np.float32), device=dev).to(
+                dtype).transpose(1, 2)
     return make(n), make(m), make(m)
 
 
+def launches(dtype=torch.float32):
+    """fused_attention's launch count of the kernel for ``dtype``."""
+    return getattr(attention.fused_attention, KERNEL_DTYPES[dtype][2])
+
+
 def check_attention(name, q, k, v, scale):
-    """The kernel against its plain version; returns (max abs, max rel)."""
-    out = attention.fused_attention(q, k, v, scale=scale)
-    ref = attention.attention_reference(q, k, v, scale)
+    """The kernel against its plain version, compared in fp32 at the
+    dtype's tolerance; returns (max abs, max rel)."""
+    atol, rtol = KERNEL_DTYPES[q.dtype][0]
+    out = attention.fused_attention(q, k, v, scale=scale).float()
+    ref = attention.attention_reference(q, k, v, scale).float()
     torch.cuda.synchronize()
     err = (out - ref).abs()
     max_abs = float(err.max())
     max_rel = float((err / ref.abs().clamp_min(1e-30)).max())
     check(bool(torch.isfinite(out).all()), f"attention {name}: non-finite")
-    check(bool((err <= ATOL + RTOL * ref.abs()).all()),
-          f"attention {name}: max abs err {max_abs:.3e} exceeds atol "
-          f"{ATOL} + rtol {RTOL}")
+    check(bool((err <= atol + rtol * ref.abs()).all()),
+          f"attention {name} ({q.dtype}): max abs err {max_abs:.3e} exceeds "
+          f"atol {atol} + rtol {rtol}")
     return max_abs, max_rel
 
 
-def attention_edge_checks(dev):
+def repeat_check(name, q, k, v, scale, reps):
+    """``reps`` more launches on the same inputs, each held to the plain
+    version at the dtype's tolerance: one launch can pass where a race
+    inside the kernel fails one launch in a hundred."""
+    atol, rtol = KERNEL_DTYPES[q.dtype][0]
+    ref = attention.attention_reference(q, k, v, scale).float()
+    limit = atol + rtol * ref.abs()
+    bad = sum(bool(((attention.fused_attention(q, k, v, scale=scale).float()
+                     - ref).abs() > limit).any()) for _ in range(reps))
+    check(bad == 0, f"attention {name} ({q.dtype}): {bad} of {reps} repeated"
+          " launches outside the tolerance")
+    return reps
+
+
+def attention_edge_checks(dev, dtype=torch.float32):
     """Edge shapes, large logits and a refused misaligned view, untimed;
     returns the largest abs error seen."""
+    atol, rtol = KERNEL_DTYPES[dtype][0]
+    tag = "attention" if dtype == torch.float32 else f"attention {dtype}"
     rng = np.random.RandomState(1)
     worst = 0.0
     for b, h, n, m, d in ATTN_EDGE_SHAPES:
-        q, k, v = head_views(rng, b, h, n, m, d, dev)
+        q, k, v = head_views(rng, b, h, n, m, d, dev, dtype)
         max_abs, _ = check_attention(f"N={n},M={m},d={d}", q, k, v,
                                      d ** -0.5)
+        repeat_check(f"N={n},M={m},d={d}", q, k, v, d ** -0.5,
+                     EDGE_REPEATS)
         worst = max(worst, max_abs)
-    log(f"[kernel] attention: {len(ATTN_EDGE_SHAPES)} edge shapes within "
-        f"atol {ATOL} / rtol {RTOL}, max abs {worst:.3e}")
+    log(f"[kernel] {tag}: {len(ATTN_EDGE_SHAPES)} edge shapes within "
+        f"atol {atol} / rtol {rtol}, max abs {worst:.3e}; each held again "
+        f"on {EDGE_REPEATS} more launches")
     _, b, h, n, m, d = ATTN_SHAPES[1]
     for heads in (LARGE_LOGIT_HEADS, (b, h)):
-        q, k, v = head_views(rng, *heads, n, m, d, dev)
+        q, k, v = head_views(rng, *heads, n, m, d, dev, dtype)
         q = q * LARGE_LOGIT_Q_SCALE
         logits = torch.einsum("bhnd,bhmd->bhnm", q.double(),
                               k.double()) * d ** -0.5
         exact = torch.softmax(logits, -1) @ v.double()
-        out = attention.fused_attention(q, k, v, scale=d ** -0.5)
-        plain = attention.attention_reference(q, k, v, d ** -0.5)
-        outside = int(((out - plain).abs() > ATOL + RTOL * plain.abs()).sum())
-        log(f"[kernel] attention large logits (B*H={heads[0] * heads[1]}, "
+        out = attention.fused_attention(q, k, v, scale=d ** -0.5).double()
+        plain = attention.attention_reference(q, k, v, d ** -0.5).double()
+        outside = int(((out - plain).abs() > atol + rtol * plain.abs()).sum())
+        log(f"[kernel] {tag} large logits (B*H={heads[0] * heads[1]}, "
             f"N=M={n}, d={d}, q x {LARGE_LOGIT_Q_SCALE:g}, logits "
             f"{float(logits.min()):.1f} to {float(logits.max()):.1f}): max "
             f"abs vs float64: kernel {float((out - exact).abs().max()):.3e}, "
             f"plain {float((plain - exact).abs().max()):.3e}; kernel vs plain"
             f" {float((out - plain).abs().max()):.3e}, {outside} of "
-            f"{out.numel()} outside atol {ATOL} / rtol {RTOL}")
+            f"{out.numel()} outside atol {atol} / rtol {rtol}")
         if heads == LARGE_LOGIT_HEADS:
             max_abs, _ = check_attention("large logits", q, k, v, d ** -0.5)
             worst = max(worst, max_abs)
-    flat = torch.empty(b * n * h * d + 1, device=dev)[1:]
-    bad = flat.view(b, n, h, d).transpose(1, 2)   # 4 bytes off alignment
-    before = attention.fused_attention.launches
+    flat = torch.empty(b * n * h * d + 1, device=dev, dtype=dtype)[1:]
+    bad = flat.view(b, n, h, d).transpose(1, 2)   # one element off alignment
+    before = launches(dtype)
     try:
         attention.fused_attention(bad, k, v, scale=d ** -0.5)
     except ValueError as e:
-        log(f"[kernel] attention: misaligned view refused ({e})")
+        log(f"[kernel] {tag}: misaligned view refused ({e})")
     else:
-        raise RuntimeError("attention: a misaligned view was not refused")
-    check(attention.fused_attention.launches == before,
-          "attention: the refused call counted a launch")
+        raise RuntimeError(f"{tag}: a misaligned view was not refused")
+    check(launches(dtype) == before,
+          f"{tag}: the refused call counted a launch")
     return worst
 
 
+# CUtensorMapDataType of the kernels' maps
+TENSOR_MAP_TYPES = {torch.float32: 7, torch.bfloat16: 9}
+
+
 def tensor_map_encode_us(q, box_rows, calls=2000):
-    """Host time of one cuTensorMapEncodeTiled, as the kernel's C entry
-    calls it three times a launch: q's (B, H, N, d) view as a 4-D fp32 map,
-    [box_rows x 32] boxes, 128-byte swizzle.  None if the driver call
-    fails."""
+    """Host time of one cuTensorMapEncodeTiled, as a kernel's C entry
+    calls it three times a launch: q's (B, H, N, d) view as a 4-D map of
+    its dtype, [box_rows x 128 bytes] boxes, 128-byte swizzle.  None if the
+    driver call fails."""
     enc = ctypes.CDLL("libcuda.so.1").cuTensorMapEncodeTiled
     u32p = ctypes.POINTER(ctypes.c_uint32)
     u64p = ctypes.POINTER(ctypes.c_uint64)
@@ -277,13 +383,16 @@ def tensor_map_encode_us(q, box_rows, calls=2000):
     buf = (ctypes.c_ubyte * 192)()          # a 64-byte-aligned CUtensorMap
     tmap = (ctypes.addressof(buf) + 63) // 64 * 64
     b, h, n, d = q.shape
+    esize = q.element_size()
     dims = (ctypes.c_uint64 * 4)(d, n, h, b)
-    strides = (ctypes.c_uint64 * 3)(*(4 * q.stride(i) for i in (2, 1, 0)))
-    box = (ctypes.c_uint32 * 4)(32, box_rows, 1, 1)
+    strides = (ctypes.c_uint64 * 3)(*(esize * q.stride(i)
+                                      for i in (2, 1, 0)))
+    box = (ctypes.c_uint32 * 4)(128 // esize, box_rows, 1, 1)
     unit = (ctypes.c_uint32 * 4)(1, 1, 1, 1)
-    # FLOAT32 = 7, rank 4, INTERLEAVE_NONE, SWIZZLE_128B = 3,
-    # L2_PROMOTION_L2_256B = 3, FLOAT_OOB_FILL_NONE
-    args = (tmap, 7, 4, q.data_ptr(), dims, strides, box, unit, 0, 3, 3, 0)
+    # rank 4, INTERLEAVE_NONE, SWIZZLE_128B = 3, L2_PROMOTION_L2_256B = 3,
+    # FLOAT_OOB_FILL_NONE
+    args = (tmap, TENSOR_MAP_TYPES[q.dtype], 4, q.data_ptr(), dims, strides,
+            box, unit, 0, 3, 3, 0)
     if enc(*args) != 0:
         return None
     t0 = time.perf_counter()
@@ -292,13 +401,17 @@ def tensor_map_encode_us(q, box_rows, calls=2000):
     return (time.perf_counter() - t0) / calls * 1e6
 
 
-def kernel_phase(dev):
+def kernel_phase(dev, dtype=torch.float32):
+    """The kernel for ``dtype`` at the main-path shapes (timed), then the
+    edge checks; returns (a row per shape, the edge checks' max abs)."""
     rng = np.random.RandomState(0)
+    tag = "attention" if dtype == torch.float32 else f"attention {dtype}"
     rows = []
     for name, b, h, n, m, d in ATTN_SHAPES:
-        q, k, v = head_views(rng, b, h, n, m, d, dev)
+        q, k, v = head_views(rng, b, h, n, m, d, dev, dtype)
         scale = d ** -0.5
         max_abs, max_rel = check_attention(name, q, k, v, scale)
+        repeats = repeat_check(name, q, k, v, scale, MAIN_REPEATS)
         ms, host_ms = time_ms(
             lambda: attention.fused_attention(q, k, v, scale=scale))
         plain_ms, _ = time_ms(
@@ -306,16 +419,19 @@ def kernel_phase(dev):
         lib_ms, _ = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, scale=scale))
-        bound_ms, bound_by = attention_bound_ms(b, h, n, m, d)
+        bound_ms, bound_by = attention_bound_ms(b, h, n, m, d, dtype)
         encode_us = tensor_map_encode_us(q, 96)
-        row = {"shape": name, "B": b, "H": h, "N": n, "M": m, "d": d,
-               "max_abs_err": max_abs, "max_rel_err": max_rel, "ms": ms,
+        row = {"shape": name, "dtype": str(dtype).replace("torch.", ""),
+               "B": b, "H": h, "N": n, "M": m, "d": d,
+               "max_abs_err": max_abs, "max_rel_err": max_rel,
+               "repeated_launches_checked": repeats, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "roofline_share": bound_ms / ms, "host_ms": host_ms,
                "tensor_map_encode_us": encode_us}
-        log(f"[kernel] attention {name} (B={b},H={h},N={n},M={m},d={d}): "
-            f"max abs {max_abs:.3e} max rel {max_rel:.3e} | kernel {ms:.4f} "
+        log(f"[kernel] {tag} {name} (B={b},H={h},N={n},M={m},d={d}): "
+            f"max abs {max_abs:.3e} max rel {max_rel:.3e}, {repeats} more "
+            f"launches within tolerance | kernel {ms:.4f} "
             f"ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}), roofline share "
             f"{bound_ms / ms:.3f}; host {1e3 * host_ms:.1f} us a call, of "
@@ -323,7 +439,7 @@ def kernel_phase(dev):
             + ("(not measured)" if encode_us is None
                else f"{3 * encode_us:.2f} us"))
         rows.append(row)
-    edge_max_abs = attention_edge_checks(dev)
+    edge_max_abs = attention_edge_checks(dev, dtype)
     torch.cuda.synchronize()
     return rows, edge_max_abs
 
@@ -333,11 +449,9 @@ def kernel_phase(dev):
 # ---------------------------------------------------------------------------
 
 
-def character_setup(gen, db_windows, dev):
-    """Norm stats and session constants from one synthetic character clip
-    (demo mode: no dataset), as the JAX package's e2e benchmark does."""
-    cha_clip = make_mocha_bvh_data(T=db_windows + WINDOW_PAD, seed=10_000,
-                                   walk_speed=60.0)
+def character_from_clip(gen, cha_clip, dev, compute_dtype=None):
+    """Norm stats and session constants from one character clip (demo
+    mode: no dataset), as the JAX package's e2e benchmark derives them."""
     feats = featurize_clip(
         torch.as_tensor(cha_clip["rotations"], dtype=torch.float32, device=dev),
         torch.as_tensor(cha_clip["positions"], dtype=torch.float32, device=dev),
@@ -348,24 +462,43 @@ def character_setup(gen, db_windows, dev):
                                     feats["bone_parents"])
     norm = compute_norm_stats(X.cpu().numpy(), Y.cpu().numpy(),
                               root.cpu().numpy())
-    cha = rtf.clip_stream_features_device(cha_clip, gen, norm, device=dev)
+    cha = rtf.clip_stream_features_device(cha_clip, gen, norm,
+                                          compute_dtype=compute_dtype,
+                                          device=dev)
     cnt_norm = rtf.compute_cnt_norm(cha["encoded"], cha["cnt"])
     consts = build_consts(norm, cnt_norm, None, cha, device=dev)
     return norm, consts, cha["bone_parents"]
 
 
+def character_setup(gen, db_windows, dev):
+    """The slice's character: one synthetic clip of ``db_windows``
+    windows."""
+    return character_from_clip(
+        gen, make_mocha_bvh_data(T=db_windows + WINDOW_PAD, seed=10_000,
+                                 walk_speed=60.0), dev)
+
+
 def run_slice(gen, cvae, norm, consts, parents, clips, dev, *,
-              deterministic, root_dtype, seed=7, keep_encoded=False):
+              deterministic, root_dtype, seed=7, keep_encoded=False,
+              char_ids=None, **runner_kw):
+    """Featurize + encode ``clips`` and run the batch runner over them;
+    returns (outputs, featurize seconds, runner seconds).  ``runner_kw``
+    go to make_batch_runner (``compute_dtype`` also to the featurizer);
+    ``char_ids`` to a multi-character runner."""
     runner = make_batch_runner(gen, cvae, consts, parents,
                                deterministic=deterministic,
-                               root_dtype=root_dtype, device=dev)
+                               root_dtype=root_dtype, device=dev,
+                               multi_character=char_ids is not None,
+                               **runner_kw)
     generator = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
-    frame0, xs = rtf.batch_stream_features_device(clips, gen, norm,
-                                                  emit_cnt=False, device=dev)
+    frame0, xs = rtf.batch_stream_features_device(
+        clips, gen, norm, emit_cnt=False,
+        compute_dtype=runner_kw.get("compute_dtype"), device=dev)
     sync(dev)
     t1 = time.perf_counter()
-    out = runner(frame0, xs, None if deterministic else generator)
+    out = runner(frame0, xs, None if deterministic else generator,
+                 char_ids=char_ids)
     sync(dev)
     t2 = time.perf_counter()
     if keep_encoded:   # (frames, streams, tokens, dim), for NN-pick gaps
@@ -375,12 +508,34 @@ def run_slice(gen, cvae, norm, consts, parents, clips, dev, *,
 
 def nn_gaps(consts, encoded, picks_a, picks_b):
     """Per query window: squared distance to database pick a minus that to
-    pick b, as the matcher scores them (runtime/matching.py)."""
+    pick b, with float64 sums as the matcher scores them
+    (runtime/matching.py)."""
     cnt = content_feature(encoded)
     q = ((cnt - consts.cnt_mean) / consts.cnt_std).reshape(len(cnt), -1)
-    d2 = consts.cha_cnt_sq - 2.0 * q @ consts.cha_cnt_flat.T
+    d2 = (consts.cha_cnt_sq.double()
+          - 2.0 * q.double() @ consts.cha_cnt_flat.double().T)
     rows = torch.arange(len(cnt))
     return (d2[rows, picks_a] - d2[rows, picks_b]).tolist()
+
+
+POS_KEYS = ("src_pos", "trans_pos", "ik_pos", "cm_pos")
+ROT_KEYS = ("src_rot", "trans_rot", "ik_rot", "cm_rot")
+
+
+def max_errors(a, b, keys, where=False):
+    """{key: max abs difference of a[key] and b[key]} over (T, S, ...)
+    outputs; with ``where``, [error, [frame, stream]] of the largest."""
+    out = {}
+    for k in keys:
+        err = (a[k].float() - b[k].float()).abs()
+        worst = float(err.max())
+        if where:
+            flat = int(err.reshape(err.shape[0] * err.shape[1], -1)
+                       .amax(-1).argmax())
+            out[k] = [worst, [flat // err.shape[1], flat % err.shape[1]]]
+        else:
+            out[k] = worst
+    return out
 
 
 def check_outputs(out, T, S, J=25):
@@ -407,9 +562,7 @@ def slice_phase(cfg, cvae_cfg, dev, *, streams, frames, db_windows, repeats):
              for i in range(streams)]
     run_slice(gen, cvae, norm, consts, parents, clips, dev,
               deterministic=False, root_dtype=torch.float32)   # warm-up
-    n_chunks = -(-streams * frames // 128)
-    expected = (n_chunks * cfg.encoder_depth
-                + ((frames - 1) * 2 + 1) * cfg.decoder_depth)
+    expected = expected_launches(cfg, [streams * frames], frames)
     runs = []
     for r in range(repeats):
         attention.fused_attention.launches = 0
@@ -420,22 +573,14 @@ def slice_phase(cfg, cvae_cfg, dev, *, streams, frames, db_windows, repeats):
         check_outputs(out, frames, streams)
         log(f"[slice] repeat {r}: featurize+encode {t_feat:.3f} s, stream "
             f"runner {t_run:.3f} s, attention launches {launches}")
-        check(launches >= expected,
+        check_launches(dev, launches >= expected,
               f"attention kernel launched {launches} times on the main path,"
               f" expected at least {expected}")
         runs.append((t_feat + t_run, t_feat, t_run, launches))
-    # host time varies run to run: report the median repeat and the range
-    runs.sort()
-    total, t_feat, t_run, launches = runs[len(runs) // 2]
-    n = streams * frames
+    launches = sorted(runs)[len(runs) // 2][3]
     result = {"streams": streams, "frames": frames, "repeats": repeats,
               "database_windows": int(consts.cha_encoded.shape[0]),
-              "featurize_encode_s": t_feat, "runner_s": t_run,
-              "e2e_frames_per_s": n / total,
-              "e2e_frames_per_s_range": [n / runs[-1][0], n / runs[0][0]],
-              "step_loop_frames_per_s": n / t_run,
-              "step_loop_frames_per_s_range": [
-                  n / max(r[2] for r in runs), n / min(r[2] for r in runs)],
+              **median_runs(runs, streams * frames),
               "attention_launches": launches,
               "expected_launches_at_least": expected}
     log(f"[slice] {json.dumps(result)}")
@@ -469,12 +614,401 @@ def parity_phase(cfg, cvae_cfg, dev, *, streams=2, frames=120,
             f"{gaps}")
         raise RuntimeError(f"parity: NN picks differ between GPU and CPU at "
                            f"{len(bad)} (frame, stream)s")
-    errs = {k: float((g[k] - c[k]).abs().max())
-            for k in ("src_pos", "trans_pos", "ik_pos", "cm_pos")}
-    log(f"[parity] GPU vs CPU, {streams} streams x {frames} frames: "
-        f"max abs position error {json.dumps(errs)}; NN picks identical")
+    errs = max_errors(g, c, POS_KEYS)
+    log(f"[parity] GPU vs CPU, {streams} streams x {frames} frames, NN picks "
+        f"identical; max abs error per output with its (frame, stream): "
+        f"{json.dumps(max_errors(g, c, POS_KEYS + ROT_KEYS, where=True))}")
     check(max(errs.values()) <= 1e-3, f"parity: positions differ {errs}")
     return errs
+
+
+def check_picks(tag, consts, encoded, a, b):
+    """NN picks a and b (T, S) must be identical; on a mismatch, print the
+    distance gaps (a's pick minus b's) scored against ``consts``, with
+    ``encoded`` (T, S, tokens, dim) the queries' source windows."""
+    if torch.equal(a, b):
+        return
+    bad = (a != b).nonzero()
+    f, s = bad[:, 0], bad[:, 1]
+    gaps = nn_gaps(consts, encoded[f, s], a[f, s], b[f, s])
+    log(f"[{tag}] NN picks differ at (frame, stream) {bad.tolist()}; "
+        f"distance gaps first-pick minus second-pick: {gaps}")
+    raise RuntimeError(f"{tag}: NN picks differ at {len(bad)} "
+                       "(frame, stream)s")
+
+
+def check_close(tag, a, b, keys, atol, rtol=0.0):
+    """Every ``keys`` output of a within atol + rtol * |b| of b's; returns
+    {key: [max abs, [frame, stream]]}."""
+    errs = max_errors(a, b, keys, where=True)
+    for k in keys:
+        ok = bool(((a[k] - b[k]).abs() <= atol + rtol * b[k].abs()).all())
+        check(ok, f"{tag}: {k} differs by {errs[k][0]:.3e} at (frame, "
+              f"stream) {errs[k][1]}, over atol {atol} / rtol {rtol}")
+    return errs
+
+
+def expected_launches(cfg, windows_per_group, frames):
+    """Attention launches of one featurize + runner pass: every 128-window
+    encoder chunk of each featurize group, then 2 decodes a frame and 1 on
+    frame 0, each layer of each decoder one launch."""
+    chunks = sum(-(-n // 128) for n in windows_per_group)
+    return (chunks * cfg.encoder_depth
+            + ((frames - 1) * 2 + 1) * cfg.decoder_depth)
+
+
+def median_runs(runs, n):
+    """runs: (total s, featurize s, runner s, ...) per repeat -> the median
+    repeat's rates with the range (host time varies run to run)."""
+    runs = sorted(runs)
+    total, t_feat, t_run = runs[len(runs) // 2][:3]
+    return {"featurize_encode_s": t_feat, "runner_s": t_run,
+            "e2e_frames_per_s": n / total,
+            "e2e_frames_per_s_range": [n / runs[-1][0], n / runs[0][0]],
+            "step_loop_frames_per_s": n / t_run,
+            "step_loop_frames_per_s_range": [
+                n / max(r[2] for r in runs), n / min(r[2] for r in runs)]}
+
+
+# ---------------------------------------------------------------------------
+# multi-character serving: 64 streams over a 30-character stack
+# ---------------------------------------------------------------------------
+
+MULTI_CHARACTERS = 30
+MULTI_WINDOW_STEP = 16    # character c has DB_WINDOWS - 16c windows
+MULTI_TCHUNK = 60
+
+
+def multi_characters(gen, n, db_windows, dev):
+    """n synthetic characters, each its own clip (seed 20000 + c, walk
+    speed 40 + 2c cm/s) of db_windows - 16c windows, encoded on the card
+    with its own norm stats.  Returns (consts per character, character 0's
+    norm stats, parents)."""
+    out, norm0, parents = [], None, None
+    for c in range(n):
+        clip = make_mocha_bvh_data(
+            T=db_windows - MULTI_WINDOW_STEP * c + WINDOW_PAD,
+            seed=20_000 + c, walk_speed=40.0 + 2.0 * c)
+        norm, consts, parents = character_from_clip(gen, clip, dev)
+        norm0 = norm if norm0 is None else norm0
+        out.append(consts)
+    return out, norm0, parents
+
+
+def tensor_gb(consts):
+    return sum(t.numel() * t.element_size() for t in consts) / 1e9
+
+
+def multi_phase(cfg, cvae_cfg, dev, *, streams=STREAMS, frames=FRAMES,
+                characters=MULTI_CHARACTERS, db_windows=DB_WINDOWS,
+                repeats=REPEATS):
+    """The slice's 64 x 240 streams, stream s served character s % 30 of a
+    30-character stack; returns (result, attention launches)."""
+    gen = init_generator(cfg, seed=0, device=dev)
+    cvae = init_cvae(cvae_cfg, seed=1, device=dev)
+    t0 = time.perf_counter()
+    per_char, norm, parents = multi_characters(gen, characters, db_windows,
+                                               dev)
+    stack = stack_consts(per_char)
+    rows = [c.cha_cnt_sq.shape[0] for c in per_char]
+    dedicated = per_char[:2]
+    del per_char
+    sync(dev)
+    setup_s = time.perf_counter() - t0
+    stack_gb = tensor_gb(stack)
+    C, M = stack.cha_cnt_sq.shape
+    log(f"[multi] {characters} characters of {rows[-1]}..{rows[0]} windows "
+        f"stacked to (C, M) = ({C}, {M}): {stack_gb:.2f} GB on the card; "
+        f"set-up {setup_s:.1f} s (untimed)")
+    clips = [make_mocha_bvh_data(T=frames + WINDOW_PAD, seed=i)
+             for i in range(streams)]
+    cids = np.arange(streams) % characters
+    group = int(np.bincount(cids, minlength=characters).max())
+    run_kw = dict(root_dtype=torch.float32, char_ids=cids)
+    run_slice(gen, cvae, norm, stack, parents, clips, dev,
+              deterministic=False, **run_kw)   # warm-up
+    reset_peak_memory(dev)
+    expected = expected_launches(cfg, [streams * frames], frames)
+    local_rows = torch.as_tensor([rows[c] for c in cids], device=dev)
+    runs = []
+    for r in range(repeats):
+        attention.fused_attention.launches = 0
+        out, t_feat, t_run = run_slice(gen, cvae, norm, stack, parents, clips,
+                                       dev, deterministic=False, seed=100 + r,
+                                       **run_kw)
+        launches = attention.fused_attention.launches
+        check_outputs(out, frames, streams)
+        check(bool(((out["nn_index"] >= 0)
+                    & (out["nn_index"] < local_rows)).all()),
+              "multi: an NN index outside its character's own rows")
+        log(f"[multi] repeat {r}: featurize+encode {t_feat:.3f} s, stream "
+            f"runner {t_run:.3f} s, attention launches {launches}")
+        check_launches(dev, launches >= expected,
+              f"multi: attention launched {launches} times, expected at "
+              f"least {expected}")
+        runs.append((t_feat + t_run, t_feat, t_run, launches))
+    peak_f32 = peak_memory_gb(dev)
+    launches = sorted(runs)[len(runs) // 2][3]
+
+    # deterministic: chunked vs monolithic, then two streams of characters
+    # 0 and 1 against dedicated single-character runners
+    frame0, xs = rtf.batch_stream_features_device(clips, gen, norm,
+                                                  emit_cnt=False, device=dev)
+    encoded = torch.cat([frame0["encoded"][None], xs["encoded"]])
+    runner = make_batch_runner(gen, cvae, stack, parents, deterministic=True,
+                               multi_character=True, device=dev)
+    det = runner(frame0, xs, char_ids=cids)
+    chunked = runner.chunked({k: v.cpu() for k, v in frame0.items()},
+                             {k: v.cpu() for k, v in xs.items()},
+                             char_ids=cids, tchunk=MULTI_TCHUNK)
+    check(torch.equal(det["nn_index"], chunked["nn_index"]),
+          "multi: chunked picks differ from the monolithic run's")
+    chunk_errs = check_close(f"multi chunked (tchunk {MULTI_TCHUNK})",
+                             chunked, det, POS_KEYS + ROT_KEYS, 1e-4)
+    dedicated_errs = {}
+    for s in (0, 1):
+        single = make_batch_runner(gen, cvae, dedicated[cids[s]], parents,
+                                   deterministic=True, device=dev)(
+            {k: v[s:s + 1] for k, v in frame0.items()},
+            {k: v[:, s:s + 1] for k, v in xs.items()})
+        mine = {k: v[:, s:s + 1] for k, v in det.items()}
+        check_picks(f"multi stream {s}", dedicated[cids[s]],
+                    encoded[:, s:s + 1], mine["nn_index"], single["nn_index"])
+        dedicated_errs[f"stream {s} (character {cids[s]})"] = check_close(
+            f"multi stream {s} vs its dedicated runner", mine, single,
+            POS_KEYS, 1e-3)
+    del runner, dedicated
+
+    # the same session from a bf16 database stack
+    stack16 = cast_database(stack, torch.bfloat16)
+    del stack
+    reset_peak_memory(dev)
+    det16 = make_batch_runner(gen, cvae, stack16, parents, deterministic=True,
+                              multi_character=True, device=dev)(
+        frame0, xs, char_ids=cids)
+    sync(dev)
+    peak_bf16 = peak_memory_gb(dev)
+    same = float((det16["nn_index"] == det["nn_index"]).float().mean())
+    bf16_errs = max_errors(det16, det, POS_KEYS, where=True)
+    log(f"[multi] bf16 database stack {tensor_gb(stack16):.2f} GB: peak "
+        f"{peak_bf16:.2f} GB vs {peak_f32:.2f} GB in float32 "
+        f"({peak_bf16 / peak_f32:.3f}); NN picks {same:.4f} identical to the"
+        f" float32 stack's; max abs position differences "
+        f"{json.dumps(bf16_errs)}")
+    check(same >= 0.9, f"multi: bf16 stack picks only {same:.4f} identical")
+    check(dev.type != "cuda" or peak_bf16 < peak_f32,
+          "multi: the bf16 stack did not lower the peak memory")
+
+    n = streams * frames
+    result = {"streams": streams, "frames": frames, "characters": C,
+              "group_size": group, "database_rows": [rows[-1], rows[0]],
+              "stack_rows": M, "stack_gb_f32": stack_gb,
+              "setup_s": setup_s, "repeats": repeats,
+              **median_runs(runs, n),
+              "peak_memory_gb_f32": peak_f32,
+              "peak_memory_gb_bf16_database": peak_bf16,
+              "bf16_database_picks_identical": same,
+              "attention_launches": launches,
+              "expected_launches_at_least": expected,
+              "chunked_max_abs": chunk_errs,
+              "dedicated_max_abs": dedicated_errs}
+    log(f"[multi] {json.dumps(result)}")
+    return result, launches
+
+
+# ---------------------------------------------------------------------------
+# the live frame-at-a-time session
+# ---------------------------------------------------------------------------
+
+LIVE_FRAMES = 1010        # the JAX package's bench.py --live
+LIVE_HOLD_FRAMES = 12
+BUDGET_MS = 1000.0 / 60.0
+
+
+def live_phase(cfg, cvae_cfg, dev, *, frames=LIVE_FRAMES,
+               db_windows=DB_WINDOWS):
+    """One stream, frame at a time, against a 2048-window character; the
+    first frames held to the batch runner at S = 1, then p50/p99 wall time
+    of push_frame and of push_frame_pipelined.  Returns (result,
+    attention launches of the push_frame run)."""
+    gen = init_generator(cfg, seed=0, device=dev)
+    cvae = init_cvae(cvae_cfg, seed=1, device=dev)
+    norm, consts, parents = character_setup(gen, db_windows, dev)
+    clip = make_mocha_bvh_data(T=frames + WINDOW_PAD, seed=60)
+    feats = rtf.clip_stream_features_device(clip, gen, norm, device=dev)
+    keys = LiveCharacterizer.FEAT_KEYS
+    host = {k: feats[k].cpu().numpy() for k in keys}
+    rows = [{k: host[k][i] for k in keys} for i in range(frames)]
+
+    # deterministic: the session against the batch runner at S = 1
+    n = LIVE_HOLD_FRAMES
+    live = LiveCharacterizer(gen, cvae, consts, parents, deterministic=True,
+                             device=dev)
+    got = [live.push_frame(r) for r in rows[:n]]
+    got = {k: torch.as_tensor(np.stack([g[k] for g in got]),
+                              device=dev)[:, None] for k in got[0]}
+    frame0, xs = stack_stream_inputs({k: feats[k][None, :n] for k in keys},
+                                     device=dev)
+    ref = make_batch_runner(gen, cvae, consts, parents, deterministic=True,
+                            device=dev)(frame0, xs)
+    check_picks("live", consts, feats["encoded"][:n, None], got["nn_index"],
+                ref["nn_index"])
+    hold = check_close("live vs batch runner", got, ref,
+                       ("trans_pos", "ik_pos", "cm_pos"), 1e-5, 1e-4)
+
+    live = LiveCharacterizer(gen, cvae, consts, parents, device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(5))
+    for r in rows[:4]:   # warm-up
+        live.push_frame(r)
+    live.reset()
+
+    def pushes(push):
+        times = []
+        for r in rows[1:]:
+            t0 = time.perf_counter()
+            out = push(r)
+            times.append(1e3 * (time.perf_counter() - t0))
+        return np.asarray(times), out
+
+    attention.fused_attention.launches = 0
+    live.push_frame(rows[0])
+    first = attention.fused_attention.launches
+    attention.fused_attention.launches = 0
+    direct, last = pushes(live.push_frame)
+    launches = attention.fused_attention.launches
+    check(np.isfinite(last["ik_pos"]).all(), "live: non-finite pose")
+    check_launches(dev, first == cfg.decoder_depth
+          and launches == 2 * cfg.decoder_depth * (frames - 1),
+          f"live: attention launched {first} times on frame 0 and "
+          f"{launches} on the next {frames - 1} frames; want "
+          f"{cfg.decoder_depth} and {2 * cfg.decoder_depth * (frames - 1)}")
+    live.reset()
+    check(live.push_frame_pipelined(rows[0]) is None,
+          "live: the first pipelined frame returned a pose")
+    piped, out = pushes(live.push_frame_pipelined)
+    t0 = time.perf_counter()
+    tail = live.flush()
+    flush_ms = 1e3 * (time.perf_counter() - t0)
+    check(out is not None and tail is not None and live.flush() is None,
+          "live: the pipelined session lost a frame")
+
+    def pct(a):
+        return {"p50_ms": float(np.percentile(a, 50)),
+                "p99_ms": float(np.percentile(a, 99)),
+                "mean_ms": float(a.mean())}
+
+    result = {"frames": frames, "database_windows": db_windows,
+              "push_frame": pct(direct),
+              "push_frame_pipelined": pct(piped), "flush_ms": flush_ms,
+              "budget_ms": BUDGET_MS,
+              "attention_launches_frame0": first,
+              "attention_launches": launches,
+              "hold_vs_batch_runner": hold}
+    log(f"[live] {json.dumps(result)}")
+    return result, first + launches
+
+
+# ---------------------------------------------------------------------------
+# bf16: the slice with bf16 weights, and the step's variants
+# ---------------------------------------------------------------------------
+
+BF16_POS_TOL = 2e-3       # tests/test_runtime.py:806-851
+VARIANT_TOL = 1e-4        # tests/test_runtime.py:607-643
+HOLD_KEYS = ("trans_pos", "ik_pos", "cm_pos")
+
+
+def bf16_phase(cfg, cvae_cfg, dev, *, streams=STREAMS, frames=FRAMES,
+               db_windows=DB_WINDOWS, repeats=REPEATS):
+    """The slice on bf16 weights with compute_dtype=bf16 (the character
+    encoded with the float32 weights, as the CLI's --bf16 does), timed;
+    then, deterministic at 2 streams x 120 frames on the same float32
+    stream features, the step in bf16, with cvae_dtype=bf16, lean_decode
+    and fuse_decodes, each held to the float32 default.  Returns (result,
+    bf16 attention launches)."""
+    gen = init_generator(cfg, seed=0, device=dev)
+    cvae = init_cvae(cvae_cfg, seed=1, device=dev)
+    norm, consts, parents = character_setup(gen, db_windows, dev)
+    gen16 = copy.deepcopy(gen).to(torch.bfloat16)
+    cvae16 = copy.deepcopy(cvae).to(torch.bfloat16)
+    bf16 = dict(compute_dtype=torch.bfloat16, root_dtype=torch.float32)
+    clips = [make_mocha_bvh_data(T=frames + WINDOW_PAD, seed=i)
+             for i in range(streams)]
+    run_slice(gen16, cvae16, norm, consts, parents, clips, dev,
+              deterministic=False, **bf16)   # warm-up
+    expected = expected_launches(cfg, [streams * frames], frames)
+    runs = []
+    for r in range(repeats):
+        attention.fused_attention.launches = 0
+        attention.fused_attention.launches_bf16 = 0
+        out, t_feat, t_run = run_slice(gen16, cvae16, norm, consts, parents,
+                                       clips, dev, deterministic=False,
+                                       seed=100 + r, **bf16)
+        l16 = attention.fused_attention.launches_bf16
+        l32 = attention.fused_attention.launches
+        check_outputs(out, frames, streams)
+        log(f"[bf16] repeat {r}: featurize+encode {t_feat:.3f} s, stream "
+            f"runner {t_run:.3f} s, attention launches bf16 {l16}, "
+            f"float32 {l32}")
+        check_launches(dev, l16 >= expected and l32 == 0,
+              f"bf16: {l16} bf16 and {l32} float32 attention launches; want "
+              f"at least {expected} and 0")
+        runs.append((t_feat + t_run, t_feat, t_run, l16))
+    launches = sorted(runs)[len(runs) // 2][3]
+
+    # deterministic holds of the step (tests/test_runtime.py:806-851): the
+    # same float32 stream features through each variant's runner
+    small = [make_mocha_bvh_data(T=120 + WINDOW_PAD, seed=50 + i)
+             for i in range(2)]
+    frame0, xs = rtf.batch_stream_features_device(small, gen, norm,
+                                                  emit_cnt=False, device=dev)
+    encoded = torch.cat([frame0["encoded"][None], xs["encoded"]])
+
+    def det(g, c, **kw):
+        return make_batch_runner(g, c, consts, parents, deterministic=True,
+                                 root_dtype=torch.float32, device=dev,
+                                 **kw)(frame0, xs)
+
+    ref = det(gen, cvae)
+    holds = {}
+    for name, out, tol, same_picks in (
+            ("bf16", det(gen16, cvae16, compute_dtype=torch.bfloat16),
+             BF16_POS_TOL, False),
+            ("cvae_dtype=bf16", det(gen, cvae16, cvae_dtype=torch.bfloat16),
+             BF16_POS_TOL, True),
+            ("lean_decode", det(gen, cvae, lean_decode=True), VARIANT_TOL,
+             True),
+            ("fuse_decodes", det(gen, cvae, fuse_decodes=True), VARIANT_TOL,
+             True)):
+        same = float((out["nn_index"] == ref["nn_index"]).float().mean())
+        if same_picks:
+            check_picks(f"bf16 phase {name}", consts, encoded,
+                        out["nn_index"], ref["nn_index"])
+        check(same >= 0.9, f"{name}: NN picks only {same:.3f} identical")
+        rtol = VARIANT_TOL if tol == VARIANT_TOL else 0.0
+        errs = check_close(f"{name} vs float32 default", out, ref, HOLD_KEYS,
+                           tol, rtol)
+        holds[name] = {"max_abs": errs, "picks_identical": same,
+                       "tolerance": tol}
+        log(f"[bf16] {name} vs the float32 default, 2 streams x 120 frames:"
+            f" {json.dumps(holds[name])}")
+    # the whole bf16 path, sources encoded in bf16 too: reported beside
+    # the step's holds (the bound above is the step's)
+    whole, _, _ = run_slice(gen16, cvae16, norm, consts, parents, small, dev,
+                            deterministic=True, **bf16)
+    holds["bf16 encode + step"] = {
+        "max_abs": max_errors(whole, ref, HOLD_KEYS, where=True),
+        "picks_identical": float(
+            (whole["nn_index"] == ref["nn_index"]).float().mean())}
+    log(f"[bf16] bf16 encode + step vs float32, 2 streams x 120 frames "
+        f"(reported): {json.dumps(holds['bf16 encode + step'])}")
+    n = streams * frames
+    result = {"streams": streams, "frames": frames, "repeats": repeats,
+              "database_windows": db_windows, **median_runs(runs, n),
+              "attention_launches_bf16": launches,
+              "expected_launches_at_least": expected, "holds": holds}
+    log(f"[bf16] {json.dumps(result)}")
+    return result, launches
 
 
 # ---------------------------------------------------------------------------
@@ -509,6 +1043,7 @@ def run_cli(args):
     (outputs, wall seconds, the number of featurize groups it reported, the
     attention launches during the call)."""
     attention.fused_attention.launches = 0
+    attention.fused_attention.launches_bf16 = 0
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -525,11 +1060,25 @@ def read_outputs(out_dir):
             for f in sorted(os.listdir(out_dir))}
 
 
+def cli_lengths(clips=CLI_CLIPS):
+    """Raw frame counts of the cli phase's clips."""
+    return [CLI_LENGTHS[i % len(CLI_LENGTHS)] for i in range(clips)]
+
+
+def cli_expected_launches(cfg, lengths):
+    """Attention launches of the clips' featurize groups and the runner
+    over the longest clip (the character's encode not counted)."""
+    n_w = {L: len(padded_window_indices(L, 60, 1)[0]) for L in lengths}
+    return expected_launches(
+        cfg, [lengths.count(L) * n for L, n in n_w.items()],
+        max(n_w.values()))
+
+
 def cli_phase(cfg, dev, root, *, clips=CLI_CLIPS, db_windows=DB_WINDOWS,
               repeats=CLI_REPEATS, config=None):
     """Phase 6.  ``config`` (a config file for ``cfg``) defaults to the
     port's own, which has the full widths."""
-    lengths = [CLI_LENGTHS[i % len(CLI_LENGTHS)] for i in range(clips)]
+    lengths = cli_lengths(clips)
     src, cha = write_cli_inputs(root, lengths, db_windows, first_seed=200)
     n_w = [len(padded_window_indices(L, 60, 1)[0]) for L in lengths]
     frames = sum(n_w)
@@ -540,11 +1089,7 @@ def cli_phase(cfg, dev, root, *, clips=CLI_CLIPS, db_windows=DB_WINDOWS,
     def args(out, *extra):
         return base + ["--out", os.path.join(root, out), *extra]
 
-    group_sizes = {L: lengths.count(L) for L in set(lengths)}
-    group_nw = {L: n for L, n in zip(lengths, n_w)}
-    expected = (sum(-(-S * group_nw[L] // 128) for L, S in group_sizes.items())
-                * cfg.encoder_depth
-                + ((max(n_w) - 1) * 2 + 1) * cfg.decoder_depth)
+    expected = cli_expected_launches(cfg, lengths)
 
     run_cli(args("warmup"))
     runs = []
@@ -555,7 +1100,7 @@ def cli_phase(cfg, dev, root, *, clips=CLI_CLIPS, db_windows=DB_WINDOWS,
             f"{n_groups} groups, attention launches {launches}")
         check(n_groups == len(CLI_LENGTHS),
               f"cli: {n_groups} featurize groups, want {len(CLI_LENGTHS)}")
-        check(launches >= expected,
+        check_launches(dev, launches >= expected,
               f"cli: attention launched {launches} times, expected at least "
               f"{expected}")
         runs.append((wall, launches))
@@ -657,14 +1202,67 @@ def cli_parity(root, dev, extra):
     return {"max_abs_position_err": errs, "nn_picks_identical": same_picks}
 
 
+def cli_bf16_run(cfg, dev, root, *, clips=CLI_CLIPS, config=None):
+    """``characterize.main([... "--bf16"])`` on the cli phase's files (in
+    ``root``): every output finite with its clip's frame count.  The
+    character is encoded with the float32 weights (float32 launches), the
+    sources and the session in bf16.  Returns (result, bf16 launches)."""
+    lengths = cli_lengths(clips)
+    n_w = [len(padded_window_indices(L, 60, 1)[0]) for L in lengths]
+    out_dir = os.path.join(root, "bf16")
+    _, wall, n_groups, l32 = run_cli(
+        ["--src-dir", os.path.join(root, "src"), "--cha",
+         os.path.join(root, "cha.bvh"), "--random-init", "--bf16",
+         "--device", dev.type, "--out", out_dir]
+        + (["--config", config] if config else []))
+    l16 = attention.fused_attention.launches_bf16
+    expected = cli_expected_launches(cfg, lengths)
+    outs = read_outputs(out_dir)
+    check(len(outs) == 3 * clips, f"cli --bf16: {len(outs)} output files")
+    for i, n in enumerate(n_w):
+        for name in (f"Src_clip_{i:02d}.bvh", f"Ours_clip_{i:02d}_To_cha.bvh",
+                     f"CM_clip_{i:02d}_To_cha.bvh"):
+            d = outs[name]
+            check(d["rotations"].shape[0] == n
+                  and np.isfinite(d["rotations"]).all()
+                  and np.isfinite(d["positions"]).all(),
+                  f"cli --bf16: {name} has {d['rotations'].shape[0]} frames "
+                  f"(want {n}) or is not finite")
+    check_launches(dev, l16 >= expected and l32 > 0,
+          f"cli --bf16: {l16} bf16 and {l32} float32 attention launches; "
+          f"want at least {expected} bf16 and some float32 (the character)")
+    result = {"main_s": wall, "frames": sum(n_w), "featurize_groups": n_groups,
+              "attention_launches_bf16": l16,
+              "attention_launches_float32": l32,
+              "expected_bf16_launches_at_least": expected}
+    log(f"[cli] --bf16: {json.dumps(result)}")
+    return result, l16
+
+
 def build_phase():
+    """Every CUDA source of the port, one nvcc each, started together."""
     t0 = time.perf_counter()
-    attention.load_library()
-    info = build.BUILD_INFO[attention.SOURCE]
-    log(f"[build] {attention.SOURCE}: {info['seconds']:.2f} s "
-        f"(phase {time.perf_counter() - t0:.2f} s) -> {info['path']}")
-    for line in info["log"].splitlines():
-        log(f"[build]   {line}")
+    sources = [src for src, _, _ in attention.KERNELS.values()]
+    build.build_all(sources)
+    for src in sources:
+        info = build.BUILD_INFO[src]
+        log(f"[build] {src}: {info['seconds']:.2f} s -> {info['path']}")
+        for line in info["log"].splitlines():
+            log(f"[build]   {line}")
+    for dtype in attention.KERNELS:
+        attention.load_library(dtype)
+    log(f"[build] phase {time.perf_counter() - t0:.2f} s")
+
+
+T_START = time.perf_counter()
+
+
+def phase(name, fn, *args, **kw):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main():
@@ -680,24 +1278,28 @@ def main():
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    build_phase()
-    attn_rows, edge_max_abs = kernel_phase(dev)
+    phase("build", build_phase)
+    attn_rows, edge_max_abs = phase("kernels", kernel_phase, dev)
+    bf16_rows, bf16_edge_max_abs = phase("kernels (bf16)", kernel_phase, dev,
+                                         torch.bfloat16)
 
     cfg = GeneratorConfig()
     cvae_cfg = CVAEConfig(output_seq=cfg.num_tokens)
-    slice_result, launches = slice_phase(
-        cfg, cvae_cfg, dev, streams=STREAMS, frames=FRAMES,
-        db_windows=DB_WINDOWS, repeats=REPEATS)
+    slice_result, launches = phase(
+        "slice", slice_phase, cfg, cvae_cfg, dev, streams=STREAMS,
+        frames=FRAMES, db_windows=DB_WINDOWS, repeats=REPEATS)
     lo, hi = slice_result["e2e_frames_per_s_range"]
     log(f"[slice] median of {REPEATS}: e2e "
         f"{slice_result['e2e_frames_per_s']:.1f} frames/s (range {lo:.1f}-"
         f"{hi:.1f}), step loop {slice_result['step_loop_frames_per_s']:.1f} "
         f"frames/s on {card}")
 
-    parity_phase(cfg, cvae_cfg, dev)
+    phase("parity", parity_phase, cfg, cvae_cfg, dev)
 
     with tempfile.TemporaryDirectory() as root:
-        cli_result, cli_launches = cli_phase(cfg, dev, root)
+        cli_result, cli_launches = phase("cli", cli_phase, cfg, dev, root)
+        _, cli_bf16_launches = phase("cli --bf16", cli_bf16_run, cfg, dev,
+                                     root)
     lo, hi = cli_result["cli_frames_per_s_range"]
     log(f"[cli] median of {CLI_REPEATS}: {cli_result['cli_frames_per_s']:.1f}"
         f" frames/s through main() (range {lo:.1f}-{hi:.1f}), slice e2e "
@@ -706,25 +1308,57 @@ def main():
         f"{cli_result['export_s']:.3f} s = "
         f"{cli_result['parse_export_share']:.3f} of main(); on {card}")
 
-    main_row = next(r for r in attn_rows if r["shape"] == "decoder streams")
-    kernels = [{
-        "name": "attention",
-        "route": "cuda",
-        "source": "mocha_sigasia2023_torch/ops/csrc/attention.cu",
-        "replaces": "mocha_sigasia2023_tpu/ops/attention.py:37",
-        "launches": launches,
-        "launches_by_path": {"slice": launches, "cli": cli_launches},
-        "max_abs_err": max([r["max_abs_err"] for r in attn_rows]
-                           + [edge_max_abs]),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "roofline_share": main_row["roofline_share"],
-        "design": DESIGN,
-        "shapes": attn_rows,
-    }]
+    multi_result, multi_launches = phase("multi", multi_phase, cfg, cvae_cfg,
+                                         dev)
+    lo, hi = multi_result["step_loop_frames_per_s_range"]
+    log(f"[multi] median of {REPEATS}: step loop "
+        f"{multi_result['step_loop_frames_per_s']:.1f} frames/s (range "
+        f"{lo:.1f}-{hi:.1f}) over {multi_result['characters']} characters, "
+        f"{multi_result['step_loop_frames_per_s'] / slice_result['step_loop_frames_per_s']:.3f}"
+        f" of the slice's; peak {multi_result['peak_memory_gb_f32']:.2f} GB; "
+        f"on {card}")
+    live_result, live_launches = phase("live", live_phase, cfg, cvae_cfg, dev)
+    log(f"[live] push_frame p50 {live_result['push_frame']['p50_ms']:.2f} ms "
+        f"p99 {live_result['push_frame']['p99_ms']:.2f} ms; pipelined p50 "
+        f"{live_result['push_frame_pipelined']['p50_ms']:.2f} ms p99 "
+        f"{live_result['push_frame_pipelined']['p99_ms']:.2f} ms; budget "
+        f"{BUDGET_MS:.1f} ms; on {card}")
+    bf16_result, bf16_launches = phase("bf16", bf16_phase, cfg, cvae_cfg, dev)
+    lo, hi = bf16_result["e2e_frames_per_s_range"]
+    log(f"[bf16] median of {REPEATS}: e2e "
+        f"{bf16_result['e2e_frames_per_s']:.1f} frames/s (range {lo:.1f}-"
+        f"{hi:.1f}), {bf16_result['e2e_frames_per_s'] / slice_result['e2e_frames_per_s']:.3f}"
+        f" of the float32 slice's; on {card}")
+
+    def kernel_entry(name, rows, edge, source, launches_by_path,
+                     main_launches, design):
+        main_row = next(r for r in rows if r["shape"] == "decoder streams")
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": f"mocha_sigasia2023_torch/ops/csrc/{source}",
+            "replaces": "mocha_sigasia2023_tpu/ops/attention.py:37",
+            "launches": main_launches,
+            "launches_by_path": launches_by_path,
+            "max_abs_err": max([r["max_abs_err"] for r in rows] + [edge]),
+            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms",
+                                        "roofline_share")},
+            "design": design,
+            "shapes": rows,
+        }
+
+    kernels = [
+        kernel_entry("attention", attn_rows, edge_max_abs, attention.SOURCE,
+                     {"slice": launches, "cli": cli_launches,
+                      "multi": multi_launches, "live": live_launches},
+                     launches, DESIGN),
+        kernel_entry("attention_bf16", bf16_rows, bf16_edge_max_abs,
+                     attention.SOURCE_BF16,
+                     {"bf16": bf16_launches, "cli_bf16": cli_bf16_launches},
+                     bf16_launches, DESIGN_BF16),
+    ]
+    log(f"[time] whole script {time.perf_counter() - T_START:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,12 @@ kinematics  quaternion algebra, FK/IK, the foot-contact springs.
 data        synthetic clips, windowing, clip featurization, window features.
 models      skeleton graph tables, layers, generator, CVAE, weight import
             (JAX pytrees and the reference's .pt checkpoints).
-runtime     context matching, stream featurization (also ragged batches),
-            the batched and single-clip stream runners, BVH export.
-ops         numerics guards and the hand-written CUDA attention kernel.
+runtime     context matching (one character or a stack), stream
+            featurization (also ragged batches), the batched,
+            multi-character and single-clip stream runners, the live
+            frame-at-a-time session, BVH export.
+ops         numerics guards and the hand-written CUDA attention kernels
+            (float32 and bfloat16).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit CPU request they raise.  This package

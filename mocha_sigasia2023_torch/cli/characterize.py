@@ -135,6 +135,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--production", action="store_true",
                     help="serving mode: skip the NN comparison stream "
                          "(CM output = CVAE output)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 generator/CVAE weights and matmuls, bf16 "
+                         "operands of the NN score product (f32 pose math)")
     ap.add_argument("--tchunk", type=int, default=0, metavar="FRAMES",
                     help="--src-dir only: keep the featurized inputs on the "
                          "host and upload them in time chunks of this many "
@@ -209,6 +212,14 @@ def main(argv=None):
                               device=dev)
     parents = np.concatenate([[-1], np.asarray(src_bvhs[0]["parents"]) + 1])
 
+    # --bf16: the character was encoded with the float32 weights, as in
+    # the JAX CLI; the sources and the session run on bf16 weights
+    compute_dtype = torch.bfloat16 if args.bf16 else None
+    if args.bf16:
+        gen = gen.to(torch.bfloat16)
+        if cvae is not None:
+            cvae = cvae.to(torch.bfloat16)
+
     ensure_dirs(args.out)
     names = list(src_bvhs[0]["names"])
     cha_name = os.path.basename(args.cha)
@@ -230,7 +241,8 @@ def main(argv=None):
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     run_kw = dict(contact_bones=contact_bones, ik=ik_cfg, dt=dt,
                   deterministic=args.deterministic,
-                  compute_cm=not args.production, root_dtype=torch.float64)
+                  compute_cm=not args.production, root_dtype=torch.float64,
+                  compute_dtype=compute_dtype)
 
     if args.src_dir:
         # one featurize+encode pass per distinct clip length, then every
@@ -238,7 +250,8 @@ def main(argv=None):
         # edge-padded and their outputs are trimmed back per clip.
         # emit_cnt=False: the runner re-derives cnt from encoded.
         frame0, xs, n_windows, n_groups = rtf.batch_stream_features_ragged(
-            src_bvhs, gen, norm, window=window, emit_cnt=False, device=dev)
+            src_bvhs, gen, norm, window=window, emit_cnt=False,
+            compute_dtype=compute_dtype, device=dev)
         print(f"featurize+encode: {n_groups} group(s) for {len(src_paths)} "
               "clips (one batch per distinct length)")
         print(f"characterizing {len(src_paths)} clips "
@@ -256,8 +269,9 @@ def main(argv=None):
             write_outputs(p, {k: v[:L, i] for k, v in out.items()})
         return out
 
-    src_feats = rtf.clip_stream_features_device(src_bvhs[0], gen, norm,
-                                                window=window, device=dev)
+    src_feats = rtf.clip_stream_features_device(
+        src_bvhs[0], gen, norm, window=window, compute_dtype=compute_dtype,
+        device=dev)
     print(f"characterizing {len(src_feats['encoded'])} frames ...")
     out = rts.characterize_clip(gen, cvae, consts, parents, src_feats,
                                 generator=generator, device=dev, **run_kw)

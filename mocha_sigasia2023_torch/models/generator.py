@@ -1,7 +1,10 @@
 """MOCHA generator: ST-GCN motion embedding + context-matching transformer.
 
 Counterpart of mocha_sigasia2023_tpu/models/generator.py (serving subset:
-``embed_tokens``, ``encode``, ``content_feature``, ``decode``, ``forward``).
+``embed_tokens``, ``encode``, ``content_feature``, ``decode``,
+``decode_stream``, ``forward``).  A generator cast to bf16
+(``.to(torch.bfloat16)``) computes in bf16, as the JAX functions do with
+bf16 parameters.
 
     (B, 60, 24, 15) motion windows
       -> 1x1 conv -> joint ST-GCN (pool folded into the graph contraction,
@@ -85,6 +88,12 @@ class GeneratorConfig(NamedTuple):
             bodypart_max_hop=body.get("max_hop", base.bodypart_max_hop))
 
 
+def _joint0_support(A_j: np.ndarray) -> np.ndarray:
+    """The joints whose columns of the (K, V, V) joint adjacency reach
+    joint 0: the only inputs of the graph conv's output at joint 0."""
+    return np.nonzero(np.any(A_j[:, :, 0] != 0, axis=0))[0]
+
+
 def _meanpool_taps(k: int, tps: int) -> np.ndarray:
     """(k + tps - 1, k) map from a temporal kernel to the kernel of the
     same conv followed by the kernel==stride==tps mean-pool."""
@@ -134,6 +143,11 @@ class Generator(nn.Module):
         self.register_buffer(
             "meanpool_taps", torch.as_tensor(_meanpool_taps(5, tps)),
             persistent=False)
+        # decode_stream's: the joint graph, the unpool, joint 0's support
+        self.register_buffer("A_j", A_j, persistent=False)
+        self.register_buffer("unpool", unpool, persistent=False)
+        self.register_buffer("joint0_support", torch.as_tensor(
+            _joint0_support(A_j.numpy())), persistent=False)
 
 
 def init_generator(cfg: GeneratorConfig = GeneratorConfig(), seed: int = 0,
@@ -150,7 +164,7 @@ def _tconv_meanpool(p, taps, x, tps: int):
     k = int(w.shape[2])
     pad = (k - 1) // 2
     w2 = torch.einsum("oikv,mk->oimv", w, taps.to(w.dtype))
-    x = F.pad(x, (0, 0, pad, pad), mode="reflect")
+    x = F.pad(x.to(w.dtype), (0, 0, pad, pad), mode="reflect")
     return F.conv2d(x, w2, p.bias, stride=(tps, 1))
 
 
@@ -185,17 +199,24 @@ def content_feature(encoded: torch.Tensor) -> torch.Tensor:
     return mean_variance_norm(encoded)
 
 
+def _decode_trunk(gen: Generator, src_encoded, cha_encoded):
+    """Decoder transformer + the head's body ST-GCN, before the time
+    repeat and unpool: (B, C, num_temp, nbody)."""
+    cfg = gen.cfg
+    tok = transformer(gen.decoder, src_encoded, cha_encoded,
+                      heads=cfg.decoder_heads, adain_on=True)
+    b, s, c = tok.shape
+    h = tok.reshape(b, cfg.num_temp, cfg.nbody, c).permute(0, 3, 1, 2)
+    return stgcn_block(gen.head["body"], h, gen.A_b)
+
+
 def decode(gen: Generator, src_encoded: torch.Tensor,
            cha_encoded: torch.Tensor) -> torch.Tensor:
     """Decoder transformer + inverse embedding -> (B, T, V, 15) motion, with
     the joint head's lrelu + 1x1 graph conv hoisted before the time repeat
     and the unpool folded into the adjacency contraction."""
     cfg = gen.cfg
-    tok = transformer(gen.decoder, src_encoded, cha_encoded,
-                      heads=cfg.decoder_heads, adain_on=True)
-    b, s, c = tok.shape
-    h = tok.reshape(b, cfg.num_temp, cfg.nbody, c).permute(0, 3, 1, 2)
-    h = stgcn_block(gen.head["body"], h, gen.A_b)
+    h = _decode_trunk(gen, src_encoded, cha_encoded)
     p_j = gen.head["joint"]
     g = conv1x1(p_j["gcn"], leaky_relu(h, 0.2))   # (B, K*C', num_temp, 6)
     n, kc, t, v = g.shape
@@ -207,6 +228,60 @@ def decode(gen: Generator, src_encoded: torch.Tensor,
     h = leaky_relu(h, 0.2)
     h = conv1x1(gen.head["conv_out"], h)
     return h.permute(0, 2, 3, 1)                  # b c t v -> b t v c
+
+
+def decode_stream(gen: Generator, src_encoded: torch.Tensor,
+                  cha_encoded: torch.Tensor):
+    """The decoder restricted to what the stream step reads: the last
+    frame's pose (all joints, all 15 channels) and joint 0's velocity
+    channels over the whole window (the hip-speed guard).  Both tails of
+    the joint head are sliced with the same math: the reflect-padded
+    temporal conv at frame T-1 reads frames T-1-pad..T-1 only, and joint
+    0's graph conv reads only its adjacency support.  Returns
+    (last (B, njoints, 15), joint-0 velocity (B, T, 3)), both still
+    normalized."""
+    cfg = gen.cfg
+    h = torch.repeat_interleave(_decode_trunk(gen, src_encoded, cha_encoded),
+                                cfg.temporal_patch_size, dim=2)
+    u = torch.einsum("nctv,vw->nctw", h, gen.unpool.to(h.dtype))
+    T = u.shape[2]
+    p_j = gen.head["joint"]
+    co = gen.head["conv_out"]
+    w_t = p_j["tcn"].weight                       # (O, I, k, 1)
+    k_t = int(w_t.shape[2])
+    # the reflect taps below assume symmetric same-padding (an odd kernel)
+    if k_t % 2 != 1:
+        raise ValueError(f"decode_stream needs an odd t-kernel, got {k_t}")
+    pad = (k_t - 1) // 2
+    A_j = gen.A_j
+    K = A_j.shape[0]
+
+    def gcn(x):
+        y = conv1x1(p_j["gcn"], x)
+        n, kc, tt, v = y.shape
+        return y.reshape(n, K, kc // K, tt, v)
+
+    # last-frame pose: the conv window at T-1 is reflect{T-1-pad..T-1};
+    # tap j reads slice-relative frame pad - |pad - j| (k=5: 0,1,2,1,0)
+    lf = leaky_relu(u[:, :, T - 1 - pad:, :], 0.2)
+    g = torch.einsum("nkctv,kvw->nctw", gcn(lf), A_j.to(lf.dtype))
+    pose = sum(torch.einsum("niv,oi->nov", g[:, :, pad - abs(pad - j), :],
+                            w_t[:, :, j, 0].to(g.dtype))
+               for j in range(k_t))
+    pose = leaky_relu(pose + p_j["tcn"].bias[None, :, None], 0.2)
+    pose = (torch.einsum("niv,oi->nov", pose, co.weight[:, :, 0, 0])
+            + co.bias[None, :, None])
+    last = pose.permute(0, 2, 1)                  # (B, V, 15)
+
+    # hip-velocity track: joint 0 over all frames
+    jsub = gen.joint0_support
+    su = leaky_relu(u[:, :, :, jsub], 0.2)
+    g0 = torch.einsum("nkctv,kv->nct", gcn(su),
+                      A_j[:, jsub, 0].to(su.dtype))   # (B, C, T)
+    v0 = leaky_relu(temporal_conv(p_j["tcn"], g0[..., None])[..., 0], 0.2)
+    vel0 = (torch.einsum("nct,oc->not", v0, co.weight[9:12, :, 0, 0])
+            + co.bias[9:12][None, :, None])
+    return last, vel0.permute(0, 2, 1)            # (B, T, 3)
 
 
 def forward(gen: Generator, src_X, cha_X, *, extract_feature: bool = False):

@@ -5,7 +5,9 @@ Counterpart of mocha_sigasia2023_tpu/models/layers.py.  Parameters live in
 ``layers.0.ff.w1``, ...) with torch layouts (Linear (out, in), Conv2d
 (O, I, kh, kw)), so JAX weights load with a flatten.  The apply functions
 take those containers and tensors, as the JAX functions take param dicts.
-Inference only: there is no dropout path.
+Inference only: there is no dropout path.  As in the JAX package, the
+convolutions cast their input to the weight's dtype, so bf16 weights
+compute in bf16; the attention product then launches the bf16 kernel.
 """
 
 from __future__ import annotations
@@ -127,14 +129,15 @@ def mean_variance_norm(x, eps=1e-5):
 
 
 def conv1x1(p, x):
-    """Pointwise Conv2d on (n, c, t, v) tensors."""
-    return F.conv2d(x, p.weight, p.bias)
+    """Pointwise Conv2d on (n, c, t, v) tensors, in the weight's dtype."""
+    return F.conv2d(x.to(p.weight.dtype), p.weight, p.bias)
 
 
 def temporal_conv(p, x):
     """Conv2d with kernel (k, 1) over the time axis of (n, c, t, v), with
-    reflect same-padding."""
+    reflect same-padding, in the weight's dtype."""
     pad = (p.weight.shape[2] - 1) // 2
+    x = x.to(p.weight.dtype)
     if pad:
         x = F.pad(x, (0, 0, pad, pad), mode="reflect")
     return F.conv2d(x, p.weight, p.bias)

@@ -1,17 +1,20 @@
-"""Fused attention: the CUDA kernel, its plain version, and the wrapper.
+"""Fused attention: the CUDA kernels, their plain version, and the wrapper.
 
 Counterpart of mocha_sigasia2023_tpu/ops/attention.py (the Pallas kernel
 ``_attn_kernel``).  ``fused_attention`` computes softmax(q k^T * scale) v
 for (B, H, N, d) queries and (B, H, M, d) keys/values:
 
-* on a CUDA tensor it launches ``csrc/attention.cu`` (fp32 in and out,
-  products in 3xTF32 on the tensor cores) or raises — there is no
-  fallback;
-* on a CPU tensor it runs :func:`attention_reference`, the plain einsum
-  form of mocha_sigasia2023_tpu/models/layers.py:227-232.
+* on a CUDA tensor it launches a kernel or raises — there is no fallback:
+  ``csrc/attention.cu`` for float32 (products in 3xTF32 on the tensor
+  cores) and ``csrc/attention_bf16.cu`` for bfloat16 (bf16 tensor-core
+  products, P and the output rounded to bf16 as the TPU kernel rounds
+  them);
+* on a CPU tensor it runs :func:`attention_reference`, the plain form of
+  the same arithmetic.
 
-``fused_attention.launches`` counts kernel launches (CPU calls do not
-count), so a run can show that it went through the kernel.
+``fused_attention.launches`` counts float32 kernel launches and
+``fused_attention.launches_bf16`` bfloat16 ones (CPU calls do not count),
+so a run can show which kernel it went through.
 """
 
 from __future__ import annotations
@@ -24,24 +27,39 @@ import torch
 from . import build
 
 SOURCE = "attention.cu"
+SOURCE_BF16 = "attention_bf16.cu"
+# dtype -> (source, C entry, launch counter)
+KERNELS = {
+    torch.float32: (SOURCE, "mocha_attention_f32", "launches"),
+    torch.bfloat16: (SOURCE_BF16, "mocha_attention_bf16", "launches_bf16"),
+}
 MAX_KEYS = 128
 HEAD_DIM_MULTIPLE = 64
-# the kernel's TMA copies need 16-byte-aligned starts and strides
+# the kernels' TMA copies need 16-byte-aligned starts and strides
 ALIGN_BYTES = 16
 
 
 def attention_reference(q, k, v, scale: float):
-    """Plain PyTorch softmax(q k^T * scale) v (the JAX einsum path)."""
+    """Plain PyTorch softmax(q k^T * scale) v.  Float32 inputs take the
+    JAX package's einsum path; bfloat16 inputs take the TPU kernel's
+    arithmetic: float32 logits and softmax, P rounded to bf16, P v summed in
+    float32, the output rounded to bf16."""
+    if q.dtype == torch.bfloat16:
+        dots = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float()) * scale
+        p = torch.softmax(dots, dim=-1).to(torch.bfloat16)
+        return torch.einsum("bhnm,bhmd->bhnd", p.float(),
+                            v.float()).to(torch.bfloat16)
     dots = torch.einsum("bhnd,bhmd->bhnm", q, k) * scale
     attn = torch.softmax(dots, dim=-1)
     return torch.einsum("bhnm,bhmd->bhnd", attn, v)
 
 
 @functools.lru_cache(maxsize=None)
-def load_library():
-    """Build (if needed) and load the kernel library; returns the C entry."""
-    lib = build.load(SOURCE)
-    fn = lib.mocha_attention_f32
+def load_library(dtype=torch.float32):
+    """Build (if needed) and load the kernel for ``dtype``; returns its C
+    entry."""
+    source, name, _ = KERNELS[dtype]
+    fn = getattr(build.load(source), name)
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
                    + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -49,10 +67,13 @@ def load_library():
 
 
 def _check(q, k, v):
+    if q.dtype not in KERNELS:
+        raise TypeError(f"fused_attention: q must be float32 or bfloat16, "
+                        f"got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_attention: {name} must be float32, got "
-                            f"{t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"fused_attention: {name} is {t.dtype}, q is "
+                            f"{q.dtype}")
         if t.dim() != 4:
             raise ValueError(f"fused_attention: {name} must be 4-D "
                              f"(B, H, rows, d), got {tuple(t.shape)}")
@@ -83,16 +104,17 @@ def _check(q, k, v):
 
 
 def fused_attention(q, k, v, *, scale: float):
-    """softmax(q k^T * scale) v.  Inputs need a unit last stride; other
-    strides are free (the generator passes (B, N, H, d) projections viewed
-    as (B, H, N, d)).  The output is a (B, H, N, d) view of a (B, N, H, d)
-    buffer, so ``out.transpose(1, 2)`` is contiguous."""
+    """softmax(q k^T * scale) v in q's dtype (float32 or bfloat16).  Inputs
+    need a unit last stride; other strides are free (the generator passes
+    (B, N, H, d) projections viewed as (B, H, N, d)).  The output is a
+    (B, H, N, d) view of a (B, N, H, d) buffer, so ``out.transpose(1, 2)``
+    is contiguous."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     _check(q, k, v)
-    fn = load_library()
+    fn = load_library(q.dtype)
     b, h, n, d = q.shape
     m = k.shape[2]
     out = torch.empty((b, n, h, d), device=q.device,
@@ -107,8 +129,10 @@ def fused_attention(q, k, v, *, scale: float):
     if err != 0:
         raise RuntimeError(f"fused_attention: CUDA launch failed with error "
                            f"{err}")
-    fused_attention.launches += 1
+    counter = KERNELS[q.dtype][2]
+    setattr(fused_attention, counter, getattr(fused_attention, counter) + 1)
     return out
 
 
 fused_attention.launches = 0
+fused_attention.launches_bf16 = 0

@@ -1,7 +1,8 @@
 """Build the CUDA sources under ``ops/csrc`` at first use.
 
 Each source compiles on its own with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes``.  Libraries land
+library with a plain C interface, loaded with ``ctypes``; ``build_all``
+runs one ``nvcc`` per source at once.  Libraries land
 in ``mocha_sigasia2023_torch/_build/`` (git-ignored), named by the hash of
 the source and of every local header it includes, so an edited source or
 header rebuilds and an unchanged one loads.  Nothing here runs at import
@@ -74,34 +75,49 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
 
+def build_all(sources) -> Dict[str, str]:
+    """Compile each ``csrc/<source>`` that has no library yet, one ``nvcc``
+    per source, all started together; return {source: library path}.  A
+    failed compile raises with the compiler's output."""
+    paths, jobs = {}, {}
+    for source in sources:
+        out = paths[source] = library_path(source)
+        if os.path.isfile(out):
+            BUILD_INFO.setdefault(source, {"seconds": 0.0, "log": "(cached)",
+                                           "path": out})
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, source)]
+        jobs[source] = (cmd, tmp, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    try:
+        for source, (cmd, tmp, t0, proc) in jobs.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {source} (exit {proc.returncode}):\n"
+                    f"{' '.join(cmd)}\n{log}")
+            os.replace(tmp, paths[source])
+            BUILD_INFO[source] = {"seconds": time.perf_counter() - t0,
+                                  "log": log.strip(), "path": paths[source]}
+    finally:
+        for cmd, tmp, t0, proc in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return paths
+
+
 def build(source: str) -> str:
     """Compile ``csrc/<source>`` unless its library exists; return the
-    library's path.  A failed compile raises with the compiler's output."""
-    out = library_path(source)
-    if os.path.isfile(out):
-        BUILD_INFO.setdefault(source, {"seconds": 0.0, "log": "(cached)",
-                                       "path": out})
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC_DIR, source)]
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {source} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    BUILD_INFO[source] = {"seconds": time.perf_counter() - t0,
-                          "log": (proc.stdout + proc.stderr).strip(),
-                          "path": out}
-    return out
+    library's path."""
+    return build_all([source])[source]
 
 
 def load(source: str) -> ctypes.CDLL:

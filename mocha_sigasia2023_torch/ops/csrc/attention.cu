@@ -30,8 +30,9 @@
 //     shared memory: first q|k chunks, then v chunks.  Thread 0 fills a
 //     stage with one TMA box per matrix ([rows x 32 columns], 128-byte
 //     rows), completing on the stage's "full" mbarrier; every thread
-//     arrives on its "empty" mbarrier when done with it, and thread 0 waits
-//     on that before refilling.  So two chunks are in flight while one is
+//     arrives on its "empty" mbarrier when done with it, behind a proxy
+//     fence that orders its reads before the next TMA write, and thread 0
+//     waits on that before refilling.  So two chunks are in flight while one is
 //     multiplied, and v's first chunks load during the last q k^T chunks and
 //     the softmax.  TMA fills rows past N or M with zeros.  The three tensor
 //     maps are encoded on the host for every call, since their addresses
@@ -58,6 +59,7 @@
 #include <stdint.h>
 
 #include "ptx.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -248,7 +250,7 @@ attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     const float* st = ring + s * kStageFloats;
     ptx::mbar_wait(&full[s], (i / kStages) & 1);
     qk_chunk<KT>(st, warp * 16, g, t, s_acc);
-    ptx::mbar_arrive(&empty[s]);
+    ptx::mbar_release_stage(&empty[s]);
     if (tid == 0 && i + kStages < loads) produce(i + kStages);
     __syncwarp();
   }
@@ -288,7 +290,7 @@ attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     ptx::mbar_wait(&full[s], (i / kStages) & 1);
     float out[kTiles][4];
     pv_chunk<KT>(st, g, t, s_acc, out);
-    ptx::mbar_arrive(&empty[s]);
+    ptx::mbar_release_stage(&empty[s]);
     if (tid == 0 && i + kStages < loads) produce(i + kStages);
     __syncwarp();
     const int c0 = (i - L) * kChunk + 2 * t;
@@ -304,50 +306,12 @@ attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime, so the
-// library needs no link against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A (B, H, rows, D) fp32 view with element strides (sb, sh, sn, 1) as a 4-D
-// tensor map read in [box_rows x 32] boxes with the 128-byte swizzle.  A
-// dimension of extent 1 takes a harmless stride.
+// A (B, H, rows, D) fp32 view as a tensor map of [box_rows x 32] boxes.
 bool encode_map(CUtensorMap* map, const float* ptr, int B, int H, int rows,
                 int D, long long sb, long long sh, long long sn,
                 int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  if (rows == 1) sn = D;
-  if (H == 1) sh = sn * rows;
-  if (B == 1) sb = sh * H;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sn * 4, (cuuint64_t)sh * 4,
-                                 (cuuint64_t)sb * 4};
-  const cuuint32_t box[4] = {(cuuint32_t)kChunk, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                const_cast<float*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tma::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, B, H,
+                         rows, D, sb, sh, sn, kChunk, box_rows);
 }
 
 template <int KT>
@@ -375,14 +339,11 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
   return (int)cudaGetLastError();
 }
 
-// TMA needs 16-byte-aligned starts and strides, unless a dim has extent 1.
 bool aligned(long long stride, int extent) {
-  return extent == 1 || stride % 4 == 0;
+  return tma::aligned(stride, extent, 4);
 }
 
-bool aligned(const void* ptr) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-}
+using tma::aligned;
 
 }  // namespace
 

@@ -1,5 +1,6 @@
 // Inline PTX for Hopper (sm_90a): mbarriers, TMA tensor copies from global
-// to shared memory, and the TF32 tensor-core product with its 3xTF32 split.
+// to shared memory, the TF32 tensor-core product with its 3xTF32 split, and
+// the bf16 product with its fragment loads.
 #pragma once
 
 #include <stdint.h>
@@ -25,6 +26,18 @@ __device__ __forceinline__ void fence_mbar_init() {
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
                :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Hands a ring stage back to its producer.  The mbarrier's release/acquire
+// orders this thread's reads of the stage (plain loads, ldmatrix: the
+// generic proxy) only against other generic-proxy accesses; the producer's
+// next TMA write into the stage is in the async proxy, so the reads are
+// fenced against it first.  Without the fence, the bf16 kernel's ldmatrix
+// reads of v met the next chunk's bytes in about 4 of 10 launches at
+// M = 45 on an H100.
+__device__ __forceinline__ void mbar_release_stage(uint64_t* bar) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  mbar_arrive(bar);
 }
 
 // One arrival that also tells the barrier to expect `bytes` of TMA copies.
@@ -106,6 +119,42 @@ __device__ __forceinline__ void mma_tf32x3(float (&d)[4],
   mma_tf32(d, a_small, b_big);
   mma_tf32(d, a_big, b_small);
   mma_tf32(d, a_big, b_big);
+}
+
+// ---- bf16 tensor cores ----
+
+// Two floats rounded to bf16 (nearest, ties to even) in one 32-bit word,
+// `lo` in the low half: the order of a row of a fragment in memory.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d += a b for a 16x16 (row) by 16x8 (col) bf16 tile; fp32 accumulation.
+// Fragments (g = lane / 4, t = lane % 4), two bf16 a register, the lower
+// column or row in the low half: a = A[g][2t..], A[g+8][2t..], A[g][2t+8..],
+// A[g+8][2t+8..]; b = B[2t..][g], B[2t+8..][g]; d = D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1].
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices from shared memory, transposed: lane L gives the
+// address of row L % 8 of matrix L / 8 (16 bytes, 16-byte aligned), and
+// register i of lane (g, t) receives matrix i's elements [2t][g] and
+// [2t+1][g], the first in the low half.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&d)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(addr)
+      : "memory");
 }
 
 }  // namespace ptx

@@ -1,4 +1,4 @@
-"""Context matching, stream featurization, the stream runners and BVH
-export."""
+"""Context matching, stream featurization, the stream runners (batched,
+multi-character, single-clip and live) and BVH export."""
 
-from . import export, features, matching, stream
+from . import export, features, live, matching, stream

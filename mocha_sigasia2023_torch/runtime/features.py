@@ -73,10 +73,11 @@ def _root_masks(parents: tuple, device: torch.device):
 
 
 def _stream_chunk_outputs(pf, ci, cp, bone_parents, gen, X_mean, X_std,
-                          emit_cnt=True):
+                          emit_cnt=True, compute_dtype=None):
     """One chunk of windows (``ci`` (C, window) row indices into the
     per-frame arrays, ``cp`` their pad mask) -> encoder features + the
-    window-last stream rows."""
+    window-last stream rows.  ``compute_dtype`` casts the encoder input;
+    encoded and cnt come back float32."""
     is_root, is_rchild = _root_masks(
         tuple(int(p) for p in np.asarray(bone_parents)), ci.device)
 
@@ -96,6 +97,8 @@ def _stream_chunk_outputs(pf, ci, cp, bone_parents, gen, X_mean, X_std,
     X = torch.cat([Xpos, quat.to_xform_xy(Xrot).reshape(b, t, j, 6), Xvel,
                    Xang], dim=-1)
     x_in = (X[:, :, 1:] - X_mean[None, None, 1:]) / X_std[None, None, 1:]
+    if compute_dtype is not None:
+        x_in = x_in.to(compute_dtype)
     encoded = gen_mod.encode(gen, x_in)
 
     # parent-local rows of the last 4 frames only (what the stream reads)
@@ -111,9 +114,9 @@ def _stream_chunk_outputs(pf, ci, cp, bone_parents, gen, X_mean, X_std,
 
     last_mask = maskf[:, -1]
     last_idx = ci[:, -1]
-    out = {"encoded": encoded}
+    out = {"encoded": encoded.float()}
     if emit_cnt:
-        out["cnt"] = gen_mod.content_feature(encoded)
+        out["cnt"] = gen_mod.content_feature(encoded).float()
     out.update({
         "pos_last": Ypos2_t[:, -1],
         "rot_last": quat.from_xform_xy(quat.to_xform_xy(Yrot2_t[:, -1])),
@@ -129,7 +132,7 @@ def _stream_chunk_outputs(pf, ci, cp, bone_parents, gen, X_mean, X_std,
 
 
 def _clip_windows(clips: Sequence[Dict], gen, norm, window, chunk, emit_cnt,
-                  dev) -> Dict[str, torch.Tensor]:
+                  compute_dtype, dev) -> Dict[str, torch.Tensor]:
     """Featurize + encode same-length, same-skeleton clips -> per-window
     features with leading (S, n_windows)."""
     c0 = clips[0]
@@ -156,7 +159,7 @@ def _clip_windows(clips: Sequence[Dict], gen, norm, window, chunk, emit_cnt,
 
     parts = [_stream_chunk_outputs(pf, flat_idx[s:s + chunk],
                                    flat_pad[s:s + chunk], bone_parents, gen,
-                                   X_mean, X_std, emit_cnt)
+                                   X_mean, X_std, emit_cnt, compute_dtype)
              for s in range(0, S * n_w, chunk)]
     return {k: torch.cat([p[k] for p in parts]).reshape(
         (S, n_w) + parts[0][k].shape[1:]) for k in parts[0]}
@@ -165,13 +168,17 @@ def _clip_windows(clips: Sequence[Dict], gen, norm, window, chunk, emit_cnt,
 @torch.no_grad()
 def batch_stream_features_device(clips: Sequence[Dict], gen, norm, *,
                                  window: int = 60, chunk: int = 128,
-                                 emit_cnt: bool = True, device=None):
+                                 emit_cnt: bool = True, compute_dtype=None,
+                                 device=None):
     """Featurize + encode many same-length clips and return the
     ``(frame0, xs)`` inputs of :func:`..runtime.stream.make_batch_runner`:
-    frame0 leaves (S, ...), xs leaves (T-1, S, ...)."""
+    frame0 leaves (S, ...), xs leaves (T-1, S, ...).  ``compute_dtype``
+    runs the encoder in that dtype (give the generator weights of that
+    dtype); the features come back float32."""
     dev = resolve_device(device)
     check_module_device(gen, dev, "generator")
-    out = _clip_windows(clips, gen, norm, window, chunk, emit_cnt, dev)
+    out = _clip_windows(clips, gen, norm, window, chunk, emit_cnt,
+                        compute_dtype, dev)
     frame0 = {k: v[:, 0] for k, v in out.items()}
     xs = {k: v[:, 1:].transpose(0, 1).contiguous() for k, v in out.items()}
     return frame0, xs
@@ -180,7 +187,8 @@ def batch_stream_features_device(clips: Sequence[Dict], gen, norm, *,
 @torch.no_grad()
 def batch_stream_features_ragged(clips: Sequence[Dict], gen, norm, *,
                                  window: int = 60, chunk: int = 128,
-                                 emit_cnt: bool = True, device=None):
+                                 emit_cnt: bool = True, compute_dtype=None,
+                                 device=None):
     """Featurize + encode clips of mixed lengths: clips are grouped by
     frame count and each group goes through
     :func:`batch_stream_features_device` (grouping is exact; padding raw
@@ -204,7 +212,7 @@ def batch_stream_features_ragged(clips: Sequence[Dict], gen, norm, *,
         idxs = groups[L]
         frame0_g, xs_g = batch_stream_features_device(
             [clips[i] for i in idxs], gen, norm, window=window, chunk=chunk,
-            emit_cnt=emit_cnt, device=dev)
+            emit_cnt=emit_cnt, compute_dtype=compute_dtype, device=dev)
         pad_t = w_max - n_w[L]
         if pad_t:
             xs_g = {k: torch.cat([v, v[-1:].expand((pad_t,) + v.shape[1:])])
@@ -222,13 +230,16 @@ def batch_stream_features_ragged(clips: Sequence[Dict], gen, norm, *,
 @torch.no_grad()
 def clip_stream_features_device(bvh_data: Dict, gen, norm, *,
                                 window: int = 60, chunk: int = 128,
-                                emit_cnt: bool = True, device=None) -> Dict:
+                                emit_cnt: bool = True, compute_dtype=None,
+                                device=None) -> Dict:
     """Per-window stream features of one clip: encoded/cnt (N, 90, 256)
-    plus the window-last pose rows, with ``bone_parents``/``bone_names``."""
+    plus the window-last pose rows, with ``bone_parents``/``bone_names``
+    (``compute_dtype`` as in :func:`batch_stream_features_device`)."""
     dev = resolve_device(device)
     check_module_device(gen, dev, "generator")
     out = {k: v[0] for k, v in _clip_windows(
-        [bvh_data], gen, norm, window, chunk, emit_cnt, dev).items()}
+        [bvh_data], gen, norm, window, chunk, emit_cnt, compute_dtype,
+        dev).items()}
     out["bone_parents"] = np.concatenate(
         [[-1], np.asarray(bvh_data["parents"]) + 1])
     out["bone_names"] = ["Root"] + list(bvh_data["names"])

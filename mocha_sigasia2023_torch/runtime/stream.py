@@ -1,9 +1,11 @@
 """The streaming characterization loop, batched over streams.
 
-Counterpart of mocha_sigasia2023_tpu/runtime/stream.py (default step,
-``compute_cm``, the single-character batch runner with ``runner.chunked``,
-``characterize_clip``; no fused or lean decodes, no bf16 modes) and of
-``build_consts`` in
+Counterpart of mocha_sigasia2023_tpu/runtime/stream.py (the step with its
+``compute_cm``, ``compute_dtype``, ``cvae_dtype``, ``fuse_decodes`` and
+``lean_decode`` options, ``init_stream``, the batch runner for one
+character or a stack of characters with ``runner.chunked``,
+``characterize_clip``, ``pad_character_database``, ``cast_database``,
+``stack_consts``) and of ``build_consts`` in
 mocha_sigasia2023_tpu/cli/characterize.py:81-112.  Per frame and stream:
 nearest-neighbour context match (hoisted out of the frame loop), CVAE prior
 sample, two generator decodes, root integration under the velocity-ratio
@@ -11,9 +13,13 @@ guard, foot locking with two-bone IK, and the 0.5 blends.
 
 Every tensor carries a leading stream axis S (written out in place of the
 JAX package's vmap) and the frame loop is a Python loop (in place of
-``lax.scan``).  The root integrators and contact springs run in
-``root_dtype`` (float32 by default, float64 allowed — no process-wide flag
-is involved); decode, FK and IK stay float32.
+``lax.scan``).  The step reads the session constants through their stream
+view (:func:`stream_consts`): the norms carry a leading axis, 1 for one
+character or S gathered by each stream's character, and a character stack's
+database is flattened to (C*M) rows that global indices address, so no
+stream ever copies a database.  The root integrators and contact springs
+run in ``root_dtype`` (float32 by default, float64 allowed — no
+process-wide flag is involved); decode, FK and IK stay float32.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from ..kinematics import quat
 from ..kinematics.inertial import ContactState, contact_update
 from ..models import cvae as cvae_mod
 from ..models import generator as gen_mod
-from .matching import nn_index
+from .matching import nn_index, nn_index_grouped
 
 
 class IKConfig(NamedTuple):
@@ -43,7 +49,8 @@ class IKConfig(NamedTuple):
 
 
 class RuntimeConsts(NamedTuple):
-    """Per-session tensors: norms and the character database."""
+    """Per-session tensors: norms and the character database.  A character
+    stack (:func:`stack_consts`) gives every field a leading C axis."""
 
     Y_mean: torch.Tensor            # (J, 15) including root row
     Y_std: torch.Tensor             # (J, 15)
@@ -56,6 +63,12 @@ class RuntimeConsts(NamedTuple):
     src_cnt_std: torch.Tensor
     cha_encoded_mean: torch.Tensor
     cha_encoded_std: torch.Tensor
+
+
+# the character database; everything else is a norm
+DATABASE_FIELDS = ("cha_encoded", "cha_cnt_flat", "cha_cnt_sq")
+# what a database row is padded with: +inf |x|^2 can never win the argmin
+PAD_FILL = {"cha_encoded": 0.0, "cha_cnt_flat": 0.0, "cha_cnt_sq": np.inf}
 
 
 class StreamCarry(NamedTuple):
@@ -122,6 +135,68 @@ def build_consts(norm, cnt_norm, cvae_norm, cha_feats,
         cha_encoded_mean=enc_mean, cha_encoded_std=enc_std)
 
 
+def pad_character_database(consts: RuntimeConsts,
+                           target_m: int) -> RuntimeConsts:
+    """One character's database padded to ``target_m`` rows: zero rows
+    whose squared norm is +inf, so the exact NN argmin never picks them."""
+    m = consts.cha_encoded.shape[0]
+    if m > target_m:
+        raise ValueError(f"database has {m} rows > target {target_m}")
+    if m == target_m:
+        return consts
+    return consts._replace(**{
+        name: torch.cat([a, a.new_full((target_m - m,) + a.shape[1:],
+                                       PAD_FILL[name])])
+        for name, a in ((n, getattr(consts, n)) for n in DATABASE_FIELDS)})
+
+
+def cast_database(consts: RuntimeConsts, dtype) -> RuntimeConsts:
+    """The database's encoded rows and normalized cnt matrix stored in
+    ``dtype`` (bf16 halves them: 30 characters of 2048 windows are about
+    11 GB in float32).  The |x|^2 norms stay float32; gathered encoded rows
+    are cast back to float32 where the step uses them, and the score
+    product casts one character block at a time (runtime/matching.py)."""
+    return consts._replace(cha_encoded=consts.cha_encoded.to(dtype),
+                           cha_cnt_flat=consts.cha_cnt_flat.to(dtype))
+
+
+def stack_consts(consts_list) -> RuntimeConsts:
+    """Per-character constants stacked for ``make_batch_runner(...,
+    multi_character=True)``: every field gains a leading C axis, and the
+    databases are padded to the largest one as
+    :func:`pad_character_database` pads them, written straight into the
+    stack (no padded copy of each database)."""
+    target_m = max(c.cha_encoded.shape[0] for c in consts_list)
+    fields = {}
+    for name in RuntimeConsts._fields:
+        leaves = [getattr(c, name) for c in consts_list]
+        if name not in DATABASE_FIELDS:
+            fields[name] = torch.stack(leaves)
+            continue
+        out = leaves[0].new_empty((len(leaves), target_m)
+                                  + leaves[0].shape[1:])
+        for i, leaf in enumerate(leaves):
+            out[i, :len(leaf)] = leaf
+            out[i, len(leaf):] = PAD_FILL[name]
+        fields[name] = out
+    return RuntimeConsts(**fields)
+
+
+def stream_consts(consts: RuntimeConsts, char_ids=None) -> RuntimeConsts:
+    """The constants as the step reads them.  One character
+    (``char_ids=None``): the norms gain a leading axis of 1.  A stack: each
+    stream's norms are gathered by its character id (S, ...), and the
+    database is viewed as (C*M) rows, which global NN indices address."""
+    if char_ids is None:
+        return consts._replace(**{
+            n: getattr(consts, n)[None] for n in RuntimeConsts._fields
+            if n not in DATABASE_FIELDS})
+    return consts._replace(**{
+        n: (getattr(consts, n).flatten(0, 1) if n in DATABASE_FIELDS
+            else getattr(consts, n)[char_ids])
+        for n in RuntimeConsts._fields})
+
+
 def stack_stream_inputs(stream_feats: Dict, device=None):
     """Per-clip stream features with leading (S, T) -> (frame0, xs): frame0
     leaves (S, ...), xs leaves (T-1, S, ...), float32 on ``device``."""
@@ -135,21 +210,43 @@ def stack_stream_inputs(stream_feats: Dict, device=None):
     return frame0, xs
 
 
-def _decode_frame(gen, consts: RuntimeConsts, src_enc, cha_enc):
-    """Decode each stream's source window against its character encoding
-    and split the last frame into pose channels.  Returns (pos, rot,
-    vel_last, ang, root-joint mean speed over the window)."""
-    S = src_enc.shape[0]
-    Ytil = gen_mod.decode(gen, src_enc, cha_enc)
-    Ytil = Ytil * consts.Y_std[1:] + consts.Y_mean[1:]
-    pos = Ytil[:, -1, :, :3]
-    txy = Ytil[:, -1, :, 3:9].reshape(S, -1, 3, 2)
-    vel_full = Ytil[..., 9:12]
-    ang = Ytil[:, -1, :, 12:15]
-    hip_vel = vel_full[:, :, 0]
-    hips_speed = torch.mean(torch.sqrt(torch.sum(hip_vel * hip_vel, dim=-1)),
-                            dim=-1)
-    return pos, quat.from_xform_xy(txy), vel_full[:, -1], ang, hips_speed
+def _decode_frames(gen, consts: RuntimeConsts, src_enc, cha_encs,
+                   compute_dtype=None, lean=False):
+    """Decode each stream's source window against K character encodings
+    (``cha_encs`` (K, S, tokens, dim)) in one generator call and split the
+    last frame into pose channels.  ``consts`` is the stream view.  Returns
+    K tuples (pos, rot, vel_last, ang, root-joint mean speed over the
+    window).  ``compute_dtype`` runs the decoder in that dtype (give the
+    generator weights of that dtype); its output is cast to float32 before
+    the norms, and the pose math stays float32.  ``lean`` decodes through
+    :func:`..models.generator.decode_stream` (the last frame's pose and the
+    root joint's velocity track only; the same math)."""
+    K, S = cha_encs.shape[:2]
+    src = src_enc.expand((K,) + src_enc.shape).flatten(0, 1)
+    cha = cha_encs.flatten(0, 1)
+    if compute_dtype is not None:
+        src, cha = src.to(compute_dtype), cha.to(compute_dtype)
+    Y_std, Y_mean = consts.Y_std[:, 1:], consts.Y_mean[:, 1:]
+    if lean:
+        last, vel0 = gen_mod.decode_stream(gen, src, cha)
+        last = (last.float().unflatten(0, (K, S)) * Y_std + Y_mean)
+        vel0 = (vel0.float().unflatten(0, (K, S)) * Y_std[:, None, 0, 9:12]
+                + Y_mean[:, None, 0, 9:12])
+        vel_last = last[..., 9:12]
+        hip_vel = vel0
+    else:
+        Ytil = gen_mod.decode(gen, src, cha).float().unflatten(0, (K, S))
+        Ytil = Ytil * Y_std[:, None] + Y_mean[:, None]
+        last = Ytil[:, :, -1]
+        vel_last = last[..., 9:12]
+        hip_vel = Ytil[:, :, :, 0, 9:12]
+    pos = last[..., :3]
+    rot = quat.from_xform_xy(last[..., 3:9].unflatten(-1, (3, 2)))
+    ang = last[..., 12:15]
+    hips_speed = torch.mean(
+        torch.sqrt(torch.sum(hip_vel * hip_vel, dim=-1)), dim=-1)
+    return [(pos[k], rot[k], vel_last[k], ang[k], hips_speed[k])
+            for k in range(K)]
 
 
 def _integrate_root(prev_pos0, prev_rot0, rvel, rang, dt):
@@ -220,21 +317,41 @@ def _ik_fixup(parents, contact_bones, ik: IKConfig, dt,
     return new_cs, adjusted
 
 
-def make_stream_step(gen, cvae, consts: RuntimeConsts, parents, *,
-                     contact_bones=(5, 24), ik: IKConfig = IKConfig(),
-                     dt: float = 1.0 / 60.0, deterministic: bool = False,
-                     compute_cm: bool = True):
-    """The batched per-frame step: step(carry, x, generator) -> (carry,
-    outputs), where ``x`` holds one frame of stream inputs (leading S) and
-    its precomputed ``nn_idx``; ``generator`` draws the CVAE noise unless
+def make_stream_step(gen, cvae, parents, *, contact_bones=(5, 24),
+                     ik: IKConfig = IKConfig(), dt: float = 1.0 / 60.0,
+                     deterministic: bool = False, compute_cm: bool = True,
+                     compute_dtype=None, cvae_dtype=None,
+                     fuse_decodes: bool = False, lean_decode: bool = False):
+    """The batched per-frame step: step(consts, carry, x, generator) ->
+    (carry, outputs), where ``consts`` is the stream view
+    (:func:`stream_consts`), ``x`` holds one frame of stream inputs
+    (leading S) and its precomputed ``nn_idx`` (global indices into the
+    view's database), and ``generator`` draws the CVAE noise unless
     ``deterministic``.  With ``compute_cm=False`` (serving) the NN-stream
-    decode is skipped and the CM outputs are the CVAE stream's."""
+    decode is skipped and the CM outputs are the CVAE stream's.
+
+    ``compute_dtype`` runs the generator decodes in that dtype and
+    ``cvae_dtype`` (``compute_dtype`` by default) the CVAE sample, each with
+    weights of that dtype; the pose math stays float32.  ``fuse_decodes``
+    stacks the two decodes into one K=2 generator call; ``lean_decode``
+    decodes only what the step reads.  Both give the same math."""
     use_cvae = cvae is not None
     decode_cm = use_cvae and compute_cm
+    if cvae_dtype is None:
+        cvae_dtype = compute_dtype
 
-    def step(carry: StreamCarry, x: Dict, generator=None):
+    def decode(consts, src_enc, *chas):
+        if fuse_decodes or len(chas) == 1:
+            return _decode_frames(gen, consts, src_enc, torch.stack(chas),
+                                  compute_dtype, lean_decode)
+        return [_decode_frames(gen, consts, src_enc, c[None], compute_dtype,
+                               lean_decode)[0] for c in chas]
+
+    def step(consts: RuntimeConsts, carry: StreamCarry, x: Dict,
+             generator=None):
         idx = x["nn_idx"]
-        nn_cha_encoded = consts.cha_encoded[idx]
+        # the cast covers bf16-stored databases (cast_database)
+        nn_cha_encoded = consts.cha_encoded[idx].float()
 
         if use_cvae:
             cnt = (x["cnt"] if "cnt" in x
@@ -243,20 +360,23 @@ def make_stream_step(gen, cvae, consts: RuntimeConsts, parents, *,
                 [(cnt - consts.src_cnt_mean) / consts.src_cnt_std,
                  (carry.prev_cha_encoded - consts.cha_encoded_mean)
                  / consts.cha_encoded_std], dim=1)
+            if cvae_dtype is not None:
+                condition = condition.to(cvae_dtype)
             vae_out = cvae_mod.sample(cvae, condition,
                                       deterministic=deterministic,
-                                      generator=generator)
+                                      generator=generator).float()
             cvae_cha_encoded = (vae_out * consts.cha_encoded_std
                                 + consts.cha_encoded_mean)
         else:
             cvae_cha_encoded = nn_cha_encoded
 
-        t_pos, t_rot, t_vel, t_ang, t_speed = _decode_frame(
-            gen, consts, x["encoded"], cvae_cha_encoded)
         if decode_cm:
-            c_pos, c_rot, c_vel, c_ang, c_speed = _decode_frame(
-                gen, consts, x["encoded"], nn_cha_encoded)
+            (t_pos, t_rot, t_vel, t_ang, t_speed), \
+                (c_pos, c_rot, c_vel, c_ang, c_speed) = decode(
+                    consts, x["encoded"], cvae_cha_encoded, nn_cha_encoded)
         else:
+            (t_pos, t_rot, t_vel, t_ang, t_speed), = decode(
+                consts, x["encoded"], cvae_cha_encoded)
             c_pos, c_rot, c_vel, c_ang, c_speed = (
                 t_pos, t_rot, t_vel, t_ang, t_speed)
 
@@ -319,14 +439,20 @@ def make_stream_step(gen, cvae, consts: RuntimeConsts, parents, *,
 
 def init_stream(gen, consts: RuntimeConsts, parents, frame0: Dict, *,
                 contact_bones=(5, 24), dt: float = 1.0 / 60.0,
-                root_dtype=torch.float32):
+                root_dtype=torch.float32, compute_dtype=None,
+                lean_decode: bool = False):
     """Frame-0 bootstrap of every stream: decode against the NN match
-    (``frame0["nn_idx"]``), identity-root integration, contact state pinned
-    at the decoded toes.  Returns (carry, frame-0 outputs)."""
+    (``frame0["nn_idx"]``, global indices into the stream view ``consts``),
+    identity-root integration, contact state pinned at the decoded toes.
+    The decode runs in ``compute_dtype`` (the JAX package's init_stream
+    decodes its float32 inputs against the bf16 weights instead, promoting
+    in places; the port keeps the whole bf16 session in bf16).  Returns
+    (carry, frame-0 outputs)."""
     idx = frame0["nn_idx"]
-    cha_enc = consts.cha_encoded[idx]
-    t_pos, t_rot, t_vel, t_ang, t_speed = _decode_frame(
-        gen, consts, frame0["encoded"], cha_enc)
+    cha_enc = consts.cha_encoded[idx].float()
+    (t_pos, t_rot, t_vel, t_ang, t_speed), = _decode_frames(
+        gen, consts, frame0["encoded"], cha_enc[None], compute_dtype,
+        lean_decode)
 
     S = idx.shape[0]
     dev = idx.device
@@ -375,57 +501,90 @@ def init_stream(gen, consts: RuntimeConsts, parents, frame0: Dict, *,
     return carry, outputs
 
 
+def check_consts_device(consts: RuntimeConsts, dev: torch.device) -> None:
+    for name, v in consts._asdict().items():
+        if v.device.type != dev.type:
+            raise ValueError(f"consts.{name} is on {v.device}, the session "
+                             f"on {dev}")
+
+
 def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
                       contact_bones=(5, 24), ik: IKConfig = IKConfig(),
                       dt: float = 1.0 / 60.0, deterministic: bool = False,
                       compute_cm: bool = True, root_dtype=torch.float32,
-                      device=None):
-    """Batched-streams characterizer for one character.
+                      compute_dtype=None, cvae_dtype=None,
+                      fuse_decodes: bool = False, lean_decode: bool = False,
+                      multi_character: bool = False, device=None):
+    """Batched-streams characterizer.
 
-    Returns ``runner(frame0, xs, generator=None)`` for frame0 leaves
-    (S, ...) and xs leaves (T-1, S, ...) (``stack_stream_inputs`` or
+    Returns ``runner(frame0, xs, generator=None, char_ids=None)`` for frame0
+    leaves (S, ...) and xs leaves (T-1, S, ...) (``stack_stream_inputs`` or
     ``batch_stream_features_device``); it returns (T, S, ...) outputs.  The
     NN query depends only on each frame's source features, so every
     (frame, stream) match runs before the frame loop, ``MATCH_TCHUNK``
-    frames per matmul.  ``generator`` (a ``torch.Generator`` on the
-    device) draws the CVAE noise and is required unless ``deterministic``.
+    frames per matmul, in ``compute_dtype`` when that is set.
+    ``generator`` (a ``torch.Generator`` on the device) draws the CVAE
+    noise and is required unless ``deterministic``.  ``compute_dtype``,
+    ``cvae_dtype``, ``fuse_decodes`` and ``lean_decode`` are the step's
+    (:func:`make_stream_step`).
 
-    ``runner.chunked(frame0, xs, generator=None, tchunk=60)`` takes
-    host-resident inputs and uploads ``tchunk`` frames of xs at a time, so
-    the device holds about two chunks of the (T, S, tokens, dim) stream
-    instead of all of it; the carry crosses chunk boundaries unchanged and
-    the outputs equal the monolithic runner's.
+    ``multi_character=True`` serves a different character to each stream
+    from one stack (:func:`stack_consts`): the runner then takes
+    ``char_ids`` (S,), checked on the host, and matches through
+    :func:`..runtime.matching.nn_index_grouped` with G = the largest
+    per-character stream count.  ``nn_index`` comes back
+    character-local.
+
+    ``runner.chunked(frame0, xs, generator=None, char_ids=None, tchunk=60)``
+    takes host-resident inputs and uploads ``tchunk`` frames of xs at a
+    time, so the device holds about two chunks of the (T, S, tokens, dim)
+    stream instead of all of it; the carry crosses chunk boundaries
+    unchanged and the outputs equal the monolithic runner's.
     """
     dev = resolve_device(device)
     check_module_device(gen, dev, "generator")
     if cvae is not None:
         check_module_device(cvae, dev, "cvae")
-    for name, v in consts._asdict().items():
-        if v.device.type != dev.type:
-            raise ValueError(f"consts.{name} is on {v.device}, the runner on "
-                             f"{dev}")
+    check_consts_device(consts, dev)
     parents = tuple(int(p) for p in np.asarray(parents))
     contact_bones = tuple(int(b) for b in contact_bones)
-    step = make_stream_step(gen, cvae, consts, parents,
+    step = make_stream_step(gen, cvae, parents,
                             contact_bones=contact_bones, ik=ik, dt=dt,
                             deterministic=deterministic,
-                            compute_cm=compute_cm)
+                            compute_cm=compute_cm,
+                            compute_dtype=compute_dtype,
+                            cvae_dtype=cvae_dtype, fuse_decodes=fuse_decodes,
+                            lean_decode=lean_decode)
+    mm_dtype = torch.float32 if compute_dtype is None else compute_dtype
+    if consts.cha_cnt_sq.dim() != 1 + multi_character:
+        raise ValueError(
+            f"runner: consts.cha_cnt_sq has shape "
+            f"{tuple(consts.cha_cnt_sq.shape)}; a multi-character runner "
+            "takes a stack_consts stack, a single-character one one "
+            "character's consts")
+    n_characters = consts.cha_cnt_sq.shape[0] if multi_character else 1
+    M = consts.cha_cnt_sq.shape[-1]
 
-    def match(cnt):
-        """(Tc, S, tok, dim) cnt -> (Tc, S) database indices."""
-        q = (cnt - consts.cnt_mean) / consts.cnt_std
-        return nn_index(q.reshape(q.shape[:2] + (-1,)), consts.cha_cnt_flat,
-                        consts.cha_cnt_sq)
+    def match(sc, cnt, cid, group_size):
+        """(Tc, S, tok, dim) cnt -> (Tc, S) global database indices."""
+        q = (cnt - sc.cnt_mean) / sc.cnt_std
+        q = q.reshape(q.shape[:2] + (-1,))
+        if cid is None:
+            return nn_index(q, consts.cha_cnt_flat, consts.cha_cnt_sq,
+                            mm_dtype)
+        return nn_index_grouped(q, consts.cha_cnt_flat, consts.cha_cnt_sq,
+                                cid, group_size, mm_dtype)
 
-    def match_frames(f):
+    def match_frames(sc, f, cid, group_size):
         """(T, S, ...) stream inputs -> (T, S) matches, in time chunks so
         the (T, S, tok, dim) normalized query never materializes whole."""
         src = f["cnt"] if "cnt" in f else f["encoded"]
         out = []
         for s in range(0, src.shape[0], MATCH_TCHUNK):
             chunk = src[s:s + MATCH_TCHUNK]
-            out.append(match(chunk if "cnt" in f
-                             else gen_mod.content_feature(chunk)))
+            out.append(match(sc, chunk if "cnt" in f
+                             else gen_mod.content_feature(chunk),
+                             cid, group_size))
         return torch.cat(out)
 
     def check_generator(generator):
@@ -433,33 +592,68 @@ def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
             raise ValueError("runner: pass a torch.Generator for the CVAE "
                              "noise, or build with deterministic=True")
 
-    def start(frame0):
-        idx0 = match_frames({k: v[None] for k, v in frame0.items()})[0]
-        return init_stream(gen, consts, parents, dict(frame0, nn_idx=idx0),
-                           contact_bones=contact_bones, dt=dt,
-                           root_dtype=root_dtype)
+    def check_cids(char_ids, S):
+        """-> (char ids on the device, group size), or (None, None)."""
+        if not multi_character:
+            if char_ids is not None:
+                raise ValueError("runner: char_ids needs a runner built with "
+                                 "multi_character=True")
+            return None, None
+        if char_ids is None:
+            raise ValueError("runner: a multi-character runner needs "
+                             "char_ids (S,)")
+        cid = np.asarray(char_ids.cpu() if torch.is_tensor(char_ids)
+                         else char_ids).astype(np.int64).reshape(-1)
+        if len(cid) != S:
+            raise ValueError(f"runner: {len(cid)} char_ids for {S} streams")
+        # an out-of-range id would index another character's rows
+        if cid.size and (cid.min() < 0 or cid.max() >= n_characters):
+            raise ValueError(
+                f"char_ids must be in [0, {n_characters}); got range "
+                f"[{cid.min()}, {cid.max()}] for a {n_characters}-character "
+                "consts stack")
+        group_size = int(np.bincount(cid, minlength=n_characters).max())
+        return torch.as_tensor(cid, device=dev), group_size
 
-    def scan(carry, xs, generator, outs):
+    def start(frame0, generator, char_ids):
+        check_generator(generator)
+        cid, group_size = check_cids(char_ids, len(frame0["encoded"]))
+        sc = stream_consts(consts, cid)
+        idx0 = match_frames(sc, {k: v[None] for k, v in frame0.items()},
+                            cid, group_size)[0]
+        carry, out0 = init_stream(gen, sc, parents,
+                                  dict(frame0, nn_idx=idx0),
+                                  contact_bones=contact_bones, dt=dt,
+                                  root_dtype=root_dtype,
+                                  compute_dtype=compute_dtype,
+                                  lean_decode=lean_decode)
+        return (sc, cid, group_size), carry, [out0]
+
+    def scan(session, carry, xs, generator, outs):
         """The step over xs's frames, appending each frame's outputs."""
-        idx_xs = match_frames(xs)
+        sc, cid, group_size = session
+        idx_xs = match_frames(sc, xs, cid, group_size)
         for t in range(idx_xs.shape[0]):
             x = {k: v[t] for k, v in xs.items()}
             x["nn_idx"] = idx_xs[t]
-            carry, o = step(carry, x, generator)
+            carry, o = step(sc, carry, x, generator)
             outs.append(o)
         return carry
 
-    def stack(outs):
-        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    def finish(session, outs):
+        out = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        cid = session[1]
+        if cid is not None:   # character-local, as a dedicated runner's
+            out["nn_index"] = out["nn_index"] - cid * M
+        return out
 
     @torch.no_grad()
-    def runner(frame0: Dict, xs: Dict, generator: Optional[torch.Generator]
-               = None) -> Dict[str, torch.Tensor]:
-        check_generator(generator)
-        carry, out0 = start(frame0)
-        outs = [out0]
-        scan(carry, xs, generator, outs)
-        return stack(outs)
+    def runner(frame0: Dict, xs: Dict,
+               generator: Optional[torch.Generator] = None,
+               char_ids=None) -> Dict[str, torch.Tensor]:
+        session, carry, outs = start(frame0, generator, char_ids)
+        scan(session, carry, xs, generator, outs)
+        return finish(session, outs)
 
     def upload(a):
         """Host array or tensor -> float32 on the device; CUDA copies go
@@ -471,18 +665,18 @@ def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
 
     @torch.no_grad()
     def chunked(frame0: Dict, xs: Dict,
-                generator: Optional[torch.Generator] = None,
+                generator: Optional[torch.Generator] = None, char_ids=None,
                 tchunk: int = 60) -> Dict[str, torch.Tensor]:
-        check_generator(generator)
         if tchunk < 1:
             raise ValueError(f"chunked: tchunk must be >= 1, got {tchunk}")
         T = len(next(iter(xs.values())))
-        carry, out0 = start({k: upload(v) for k, v in frame0.items()})
-        outs = [out0]
+        session, carry, outs = start(
+            {k: upload(v) for k, v in frame0.items()}, generator, char_ids)
         for s in range(0, T, tchunk):
-            carry = scan(carry, {k: upload(v[s:s + tchunk])
-                                 for k, v in xs.items()}, generator, outs)
-        return stack(outs)
+            carry = scan(session, carry, {k: upload(v[s:s + tchunk])
+                                          for k, v in xs.items()},
+                         generator, outs)
+        return finish(session, outs)
 
     runner.chunked = chunked
     return runner
@@ -492,6 +686,8 @@ def characterize_clip(gen, cvae, consts: RuntimeConsts, parents,
                       stream_feats: Dict, *, contact_bones=(5, 24),
                       ik: IKConfig = IKConfig(), dt: float = 1.0 / 60.0,
                       deterministic: bool = False, compute_cm: bool = True,
+                      compute_dtype=None, cvae_dtype=None,
+                      fuse_decodes: bool = False, lean_decode: bool = False,
                       root_dtype=torch.float64,
                       generator: Optional[torch.Generator] = None,
                       device=None) -> Dict[str, np.ndarray]:
@@ -509,7 +705,10 @@ def characterize_clip(gen, cvae, consts: RuntimeConsts, parents,
                                contact_bones=contact_bones, ik=ik, dt=dt,
                                deterministic=deterministic,
                                compute_cm=compute_cm, root_dtype=root_dtype,
-                               device=dev)
+                               compute_dtype=compute_dtype,
+                               cvae_dtype=cvae_dtype,
+                               fuse_decodes=fuse_decodes,
+                               lean_decode=lean_decode, device=dev)
     if generator is None and not deterministic:
         generator = torch.Generator(device=dev).manual_seed(1777)
     out = runner(frame0, xs, generator)

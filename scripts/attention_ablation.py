@@ -68,13 +68,16 @@ PATCHES = {
 }
 
 
-def build_variants():
+def build_variants(patches=PATCHES, out=OUT, dtypes=(torch.float32,)):
+    """{(variant, dtype): C entry}: a patched copy of the sources for each
+    variant, and one ``nvcc`` for each (variant, kernel source), all
+    started before any is waited on."""
     procs = {}
-    for name, patches in PATCHES.items():
-        src = os.path.join(OUT, name)
+    for name, edits in patches.items():
+        src = os.path.join(out, name)
         shutil.rmtree(src, ignore_errors=True)
         shutil.copytree(build.CSRC_DIR, src)
-        for fname, old, new in patches:
+        for fname, old, new in edits:
             path = os.path.join(src, fname)
             with open(path) as f:
                 text = f.read()
@@ -83,17 +86,22 @@ def build_variants():
                                    f"{fname}: {old!r}")
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
-        lib = os.path.join(src, "libattention.so")
-        procs[name] = (lib, subprocess.Popen(
-            [build.find_nvcc(), *build.NVCC_FLAGS, "-o", lib,
-             os.path.join(src, "attention.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for dtype in dtypes:
+            source, entry, _ = attention.KERNELS[dtype]
+            lib = os.path.join(src, f"lib{source[:-3]}.so")
+            procs[name, dtype] = (lib, entry, subprocess.Popen(
+                [build.find_nvcc(), *build.NVCC_FLAGS, "-o", lib,
+                 os.path.join(src, source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
-    for name, (lib, proc) in procs.items():
+    for key, (lib, entry, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc failed\n{log}")
-        fns[name] = ctypes.CDLL(lib).mocha_attention_f32
+            raise RuntimeError(f"{key}: nvcc failed\n{log}")
+        fn = getattr(ctypes.CDLL(lib), entry)
+        library = attention.load_library(key[1])
+        fn.argtypes, fn.restype = library.argtypes, library.restype
+        fns[key] = fn
     return fns
 
 
@@ -102,10 +110,7 @@ def main():
         print("attention_ablation: no CUDA device is available",
               file=sys.stderr)
         return 1
-    fns = build_variants()
-    library = attention.load_library()
-    for fn in fns.values():
-        fn.argtypes, fn.restype = library.argtypes, library.restype
+    fns = {name: fn for (name, _), fn in build_variants().items()}
     dev = torch.device("cuda")
     names = list(fns)
     order = names + names[::-1] + names + names[::-1]
@@ -114,7 +119,7 @@ def main():
         q, k, v = cs.head_views(np.random.RandomState(0), b, h, n, m, d, dev)
         times = {name: [] for name in names}
         for name in order:
-            attention.load_library = (lambda f: lambda: f)(fns[name])
+            attention.load_library = (lambda f: lambda *_: f)(fns[name])
             times[name].append(cs.time_ms(lambda: attention.fused_attention(
                 q, k, v, scale=d ** -0.5))[0])
         result["ms"][shape] = {name: float(np.median(t))
@@ -128,7 +133,7 @@ def main():
     logits = torch.einsum("bhnd,bhmd->bhnm", q.double(), k.double())
     exact = torch.softmax(logits * d ** -0.5, -1) @ v.double()
     for name in names:
-        attention.load_library = (lambda f: lambda: f)(fns[name])
+        attention.load_library = (lambda f: lambda *_: f)(fns[name])
         out = attention.fused_attention(q, k, v, scale=d ** -0.5)
         result["large_logit_err"][name] = float((out - exact).abs().max())
     cs.log(f"[ablation] large logits, max abs vs float64: "

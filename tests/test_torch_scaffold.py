@@ -40,8 +40,9 @@ def _port_modules():
 
 def test_import_loads_no_jax():
     mods = _port_modules()
-    for m in ("runtime.stream", "runtime.export", "cli.characterize",
-              "io.bvh", "utils.config"):
+    for m in ("runtime.stream", "runtime.export", "runtime.live",
+              "runtime.matching", "cli.characterize", "io.bvh",
+              "utils.config"):
         assert "mocha_sigasia2023_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
@@ -74,6 +75,8 @@ def test_sources_import_no_jax():
     assert len(files) > 10
     for sub in ("cli", "io", "utils"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
+    for name in ("live.py", "matching.py"):
+        assert any(f.endswith(os.sep + name) for f in files), name
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]
@@ -129,7 +132,7 @@ def test_entry_points_default_to_cuda(tmp_path):
     from mocha_sigasia2023_torch.io import bvh
     from mocha_sigasia2023_torch.models.generator import (
         GeneratorConfig, init_generator)
-    from mocha_sigasia2023_torch.runtime import features, stream
+    from mocha_sigasia2023_torch.runtime import features, live, stream
 
     assert mocha_sigasia2023_torch.__version__
     assert resolve_device("cpu") == torch.device("cpu")
@@ -147,6 +150,11 @@ def test_entry_points_default_to_cuda(tmp_path):
         features.batch_stream_features_ragged([clip], gen, {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stream.characterize_clip(gen, None, None, None, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        live.LiveCharacterizer(gen, None, None, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream.make_batch_runner(gen, None, None, None,
+                                 multi_character=True)
     bvh.save(str(tmp_path / "c.bvh"), clip)
     out = tmp_path / "out"
     with pytest.raises(RuntimeError, match="no CUDA device"):
