@@ -15,10 +15,12 @@ Phases (any failure exits non-zero; each prints its wall time):
      kernel, the plain version and one PyTorch library call (SDPA in the
      same dtype), the kernel's roofline share and the wrapper's host time
      a call.  Untimed, the same check at edge shapes (N in {1, 17, 128,
-     200}, M in {1, 45, 128}, d in {64, 128, 256}) and with logits near
-     +-40; a misaligned view must be refused.  Each main-path shape is
-     held to the plain version again on 300 more launches, each edge
-     shape on 10, so that a race that fails some launches shows.
+     200}, M in {1, 45, 90, 128}, d in {64, 128, 256}, and 2 * SMs + 1
+     heads, one more item than the bf16 kernel's persistent grid takes in
+     two rounds) and with logits near +-40; a misaligned view must be
+     refused.  Each main-path shape is held to the plain version again on
+     300 more launches, each edge shape on 10, so that a race that fails
+     some launches shows.
   4. slice: the full-width model (random weights from a NumPy seed) serves
      64 synthetic clips x 240 frames against a 2048-window character
      database: featurize -> windows -> encode -> batched stream runner with
@@ -231,10 +233,24 @@ ATTN_SHAPES = [
 MAIN_REPEATS, EDGE_REPEATS = 300, 10
 
 # untimed edge shapes: (batch, heads, query rows, key rows, head dim); the
-# last two take two row blocks and the largest shared-memory footprint
+# last three take two row blocks (of the float32 kernel's 96 rows, of the
+# bf16 kernel's 128) and the largest shared-memory footprint
 ATTN_EDGE_SHAPES = ([(2, 3, n, m, d) for n in (1, 17) for m in (1, 45, 128)
                      for d in (64, 128, 256)]
-                    + [(2, 3, 200, 128, 64), (2, 3, 128, 128, 256)])
+                    + [(2, 3, 200, 128, 64), (2, 3, 128, 128, 256),
+                       (2, 3, 200, 90, 256)])
+
+
+def persistent_tail_shape(dev):
+    """An edge shape of 2 * SMs + 1 heads at N = M = 90, d = 128: the bf16
+    kernel's persistent grid has one CTA a SM, so one CTA takes a third
+    item and the ring's stage and parity run on across items (132 SMs:
+    B*H = 265 = 53 x 5)."""
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
+    items = 2 * sms + 1
+    h = next(h for h in (5, 4, 3, 2, 1) if items % h == 0)
+    return items // h, h, 90, 90, 128
 # q x 8 puts the logits near +-40.  There the fp32 plain version is itself
 # about 3e-5 from float64 at the largest of the 5.9M outputs of a full
 # decoder call, so the checked case has the edge shapes' 6 heads; the full
@@ -245,11 +261,15 @@ DESIGN = ("one CTA per (batch, head) for N <= 96; q|k then v staged in "
           "32-column chunks by TMA (128-byte swizzle) through a 3-stage "
           "mbarrier ring; q k^T and P v as 3xTF32 mma.sync.m16n8k8 with fp32 "
           "accumulation; softmax and P in registers")
-DESIGN_BF16 = ("the float32 kernel's CTA and ring with bf16 operands: "
-               "64-column (128-byte) TMA chunks, q k^T and P v as single-pass "
-               "mma.sync.m16n8k16 bf16 with fp32 accumulation, P normalised "
-               "and rounded to bf16 in registers, v fragments by "
-               "ldmatrix.trans, output rounded to bf16")
+DESIGN_BF16 = ("persistent and warp-specialized: one CTA a SM walks (batch, "
+               "head, 128-row block) items; one producer warp keeps a ring "
+               "of TMA stages (128-byte swizzle; 6 of 28 KB at 96 keys) full "
+               "across items; two consumer warpgroups of 64 query rows run "
+               "q k^T as wgmma m64nNk16 (N = 64/96/128 keys, K-major q and "
+               "k) and P v as wgmma m64n64k16 with P from registers and v "
+               "MN-major; fp32 softmax, P = e / sum rounded to bf16; each "
+               "warp stores its rows of an output chunk through a swizzled "
+               "staging tile and one TMA store")
 
 
 def attention_bound_ms(b, h, n, m, d, dtype=torch.float32):
@@ -320,14 +340,16 @@ def attention_edge_checks(dev, dtype=torch.float32):
     tag = "attention" if dtype == torch.float32 else f"attention {dtype}"
     rng = np.random.RandomState(1)
     worst = 0.0
-    for b, h, n, m, d in ATTN_EDGE_SHAPES:
+    shapes = ATTN_EDGE_SHAPES + [persistent_tail_shape(dev)]
+    for b, h, n, m, d in shapes:
         q, k, v = head_views(rng, b, h, n, m, d, dev, dtype)
         max_abs, _ = check_attention(f"N={n},M={m},d={d}", q, k, v,
                                      d ** -0.5)
         repeat_check(f"N={n},M={m},d={d}", q, k, v, d ** -0.5,
                      EDGE_REPEATS)
         worst = max(worst, max_abs)
-    log(f"[kernel] {tag}: {len(ATTN_EDGE_SHAPES)} edge shapes within "
+    log(f"[kernel] {tag}: {len(shapes)} edge shapes (B*H up to "
+        f"{max(b * h for b, h, *_ in shapes)}) within "
         f"atol {atol} / rtol {rtol}, max abs {worst:.3e}; each held again "
         f"on {EDGE_REPEATS} more launches")
     _, b, h, n, m, d = ATTN_SHAPES[1]
@@ -370,9 +392,9 @@ TENSOR_MAP_TYPES = {torch.float32: 7, torch.bfloat16: 9}
 
 def tensor_map_encode_us(q, box_rows, calls=2000):
     """Host time of one cuTensorMapEncodeTiled, as a kernel's C entry
-    calls it three times a launch: q's (B, H, N, d) view as a 4-D map of
-    its dtype, [box_rows x 128 bytes] boxes, 128-byte swizzle.  None if the
-    driver call fails."""
+    calls it for each of its maps at every launch (3 in float32, 4 in
+    bf16): q's (B, H, N, d) view as a 4-D map of its dtype, [box_rows x 128
+    bytes] boxes, 128-byte swizzle.  None if the driver call fails."""
     enc = ctypes.CDLL("libcuda.so.1").cuTensorMapEncodeTiled
     u32p = ctypes.POINTER(ctypes.c_uint32)
     u64p = ctypes.POINTER(ctypes.c_uint64)
@@ -406,6 +428,7 @@ def kernel_phase(dev, dtype=torch.float32):
     edge checks; returns (a row per shape, the edge checks' max abs)."""
     rng = np.random.RandomState(0)
     tag = "attention" if dtype == torch.float32 else f"attention {dtype}"
+    n_maps = 3 if dtype == torch.float32 else 4
     rows = []
     for name, b, h, n, m, d in ATTN_SHAPES:
         q, k, v = head_views(rng, b, h, n, m, d, dev, dtype)
@@ -435,9 +458,9 @@ def kernel_phase(dev, dtype=torch.float32):
             f"ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}), roofline share "
             f"{bound_ms / ms:.3f}; host {1e3 * host_ms:.1f} us a call, of "
-            f"which 3 tensor-map encodes take "
+            f"which {n_maps} tensor-map encodes take "
             + ("(not measured)" if encode_us is None
-               else f"{3 * encode_us:.2f} us"))
+               else f"{n_maps * encode_us:.2f} us"))
         rows.append(row)
     edge_max_abs = attention_edge_checks(dev, dtype)
     torch.cuda.synchronize()

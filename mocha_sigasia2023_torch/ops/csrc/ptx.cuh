@@ -1,6 +1,6 @@
-// Inline PTX for Hopper (sm_90a): mbarriers, TMA tensor copies from global
-// to shared memory, the TF32 tensor-core product with its 3xTF32 split, and
-// the bf16 product with its fragment loads.
+// Inline PTX for Hopper (sm_90a): mbarriers, TMA tensor copies between
+// global and shared memory, the TF32 tensor-core product with its 3xTF32
+// split, and the bf16 warpgroup products (wgmma).
 #pragma once
 
 #include <stdint.h>
@@ -32,9 +32,11 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // orders this thread's reads of the stage (plain loads, ldmatrix: the
 // generic proxy) only against other generic-proxy accesses; the producer's
 // next TMA write into the stage is in the async proxy, so the reads are
-// fenced against it first.  Without the fence, the bf16 kernel's ldmatrix
-// reads of v met the next chunk's bytes in about 4 of 10 launches at
-// M = 45 on an H100.
+// fenced against it first.  Without the fence, an earlier bf16 kernel's
+// ldmatrix reads of v met the next chunk's bytes in about 4 of 10 launches
+// at M = 45 on an H100.  (wgmma reads shared memory in the async proxy and
+// is complete once wgmma_wait returns; its stages are released here all the
+// same, so that every release in the repo has one form.)
 __device__ __forceinline__ void mbar_release_stage(uint64_t* bar) {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   mbar_arrive(bar);
@@ -64,15 +66,62 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // parameter) from global to shared memory at the coordinates c0 (innermost)
 // .. c3, completing on `bar`; elements outside the tensor arrive as zeros ----
 
-__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
                                             int c0, int c1, int c2, int c3,
                                             uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  tma_load_4d(smem_addr(dst), map, c0, c1, c2, c3, bar);
+}
+
+// One box from shared memory at `src` into the tensor at c0 .. c3, in this
+// thread's current bulk group; elements outside the tensor are not written.
+__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read shared
+// memory (their sources may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" :: "n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// Brings a tensor map (a __grid_constant__ kernel parameter) into the cache.
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];"
+               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---- shared stores ----
+
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;" :: "r"(addr), "r"(v) : "memory");
 }
 
 // ---- TF32 tensor cores ----
@@ -131,30 +180,175 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return r;
 }
 
-// d += a b for a 16x16 (row) by 16x8 (col) bf16 tile; fp32 accumulation.
-// Fragments (g = lane / 4, t = lane % 4), two bf16 a register, the lower
-// column or row in the low half: a = A[g][2t..], A[g+8][2t..], A[g][2t+8..],
-// A[g+8][2t+8..]; b = B[2t..][g], B[2t+8..][g]; d = D[g][2t], D[g][2t+1],
-// D[g+8][2t], D[g+8][2t+1].
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// ---- bf16 warpgroup products (wgmma) ----
+//
+// A warpgroup is 4 consecutive warps (128 threads).  Its fp32 accumulator
+// of a 64 x N product holds, for warp w and lane (g = lane / 4,
+// t = lane % 4), d[4j + 0..3] = D[16w + g][8j + 2t], D[16w + g][8j + 2t + 1],
+// D[16w + g + 8][8j + 2t], D[16w + g + 8][8j + 2t + 1]: the mma.sync
+// layout, one 8-column tile j after another.
+
+// The shared-memory matrix descriptor of a tile laid down by TMA with the
+// 128-byte swizzle (1024-byte atoms of 8 rows of 128 bytes), in 16-byte
+// units: the start address; the stride byte offset, 1024 bytes from one
+// 8-row group to the next (rows of a K-major operand, K of an MN-major one);
+// the leading byte offset, unused here (1): it steps K inside a K-major
+// atom, or across 64-element MN atoms of an MN-major operand 64 wide; and
+// the swizzle mode (bits 62-63 = 1).  The base offset (bits 49-51) stays 0:
+// every tile starts on a 1024-byte boundary, and a K step inside an atom
+// only moves the start address.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// Four 8x8 b16 matrices from shared memory, transposed: lane L gives the
-// address of row L % 8 of matrix L / 8 (16 bytes, 16-byte aligned), and
-// register i of lane (g, t) receives matrix i's elements [2t][g] and
-// [2t+1][g], the first in the low half.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&d)[4],
-                                                  uint32_t addr) {
+// Orders this thread's register writes (accumulators, A fragments) before
+// the wgmma that read them.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// Waits until at most N committed wgmma groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across wgmma_fence / wgmma_wait (it cannot see the asynchronous writes).
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (64 x N, fp32, the accumulator layout above) += A B^T for one k16
+// step, N = 64, 96 or 128: A (64 x 16) and B (N x 16) both K-major in
+// shared memory, read through the descriptors a and b.  accumulate = 0
+// overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_m64nNk16_ss(float (&d)[N / 2],
+                                                  uint64_t a, uint64_t b,
+                                                  int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_ss<64>(float (&d)[32],
+                                                     uint64_t a, uint64_t b,
+                                                     int accumulate) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-      : "r"(addr)
-      : "memory");
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_ss<96>(float (&d)[48],
+                                                     uint64_t a, uint64_t b,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_ss<128>(float (&d)[64],
+                                                     uint64_t a, uint64_t b,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += A B for one k16 step: A (64 x 16 bf16) from
+// registers in the accumulator's row order (a[0] = A[g][2t..2t+1],
+// a[1] = A[g+8][2t..], a[2] = A[g][2t+8..], a[3] = A[g+8][2t+8..] for warp
+// w's rows 16w..16w+15), B (16 x 64) MN-major in shared memory (the
+// transpose bit set).  accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
 }
 
 }  // namespace ptx

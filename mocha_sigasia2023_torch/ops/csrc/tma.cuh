@@ -30,9 +30,9 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A (B, H, rows, D) view with element strides (sb, sh, sn, 1) as a 4-D tensor
-// map read in [box_rows x box_cols] boxes with the 128-byte swizzle (the
-// 16-byte unit u of box row r lands at unit u ^ (r % 8)); box_cols *
-// elem_bytes must be 128.  A dimension of extent 1 takes a harmless stride.
+// map read or written in [box_rows x box_cols] boxes with the 128-byte
+// swizzle (the 16-byte unit u of box row r lands at unit u ^ (r % 8));
+// box_cols * elem_bytes must be 128.  A dimension of extent 1 takes a harmless stride.
 inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
                        int elem_bytes, const void* ptr, int B, int H,
                        int rows, int D, long long sb, long long sh,

@@ -6,10 +6,14 @@ einsum path at the tolerance the JAX package uses for its kernel
 (tests/test_ops.py: atol 2e-5, rtol 1e-4).  The CUDA kernel itself runs
 only on the card (chip_smoke.py holds it against the plain version).
 
-The kernel's products run in 3xTF32 on the tensor cores.  The tests at the
-end emulate that arithmetic on the CPU and show why the split is there:
-3xTF32 holds the fp32 contract against a float64 reference at the
+The float32 kernel's products run in 3xTF32 on the tensor cores.  Tests
+further down emulate that arithmetic on the CPU and show why the split is
+there: 3xTF32 holds the fp32 contract against a float64 reference at the
 main-path widths and at logits near +-40, and single-pass TF32 does not.
+The last tests emulate the bf16 kernel's arithmetic (bf16 operands, fp32
+sums of exact products, P = e / sum rounded to bf16) against the bf16
+plain version, the division the kernel forms, and flash attention's
+deferred normalisation.
 """
 
 import numpy as np
@@ -212,3 +216,108 @@ def test_single_pass_tf32_misses_fp32_contract(d, q_scale):
     q, k, v, scale = _numerics_inputs(d, q_scale)
     out = _attention_emulated(q, k, v, scale, _mm_tf32)
     assert not _within_contract(out, _exact(q, k, v, scale))
+
+
+# ---------------------------------------------------------------------------
+# bf16 kernel numerics, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+ATOL_BF16 = RTOL_BF16 = 8e-3   # the bf16 kernel against its plain version
+
+
+def _bf16(x):
+    """x rounded to bf16 (nearest, ties to even), as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _mm_k16(a, b):
+    """a @ b as the bf16 kernel's wgmma sum it: each k16 step's 16 exact
+    products summed, then added to an fp32 accumulator step after step, in
+    the kernel's chunk order (64 columns of d, or 16 keys, at a time)."""
+    acc = None
+    for c in range(0, a.shape[-1], 16):
+        part = (a[..., c:c + 16].double()
+                @ b[..., c:c + 16, :].double()).float()
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _div_kernel(e, total):
+    """e / total as the bf16 kernel forms it: inv = 1 / total rounded,
+    q = e * inv, then one correction from the residual e - total * q (an
+    FMA on the card, exact here in float64)."""
+    inv = 1.0 / total
+    q = e * inv
+    r = (e.double() - total.double() * q.double()).float()
+    return (q.double() + r.double() * inv.double()).float()
+
+
+def _attention_bf16_emulated(q, k, v, scale, deferred=False):
+    """The bf16 kernel's arithmetic: q, k, v in bf16; logits as fp32 sums of
+    exact products; fp32 softmax; P = e / sum rounded to bf16; P v summed
+    in fp32 and rounded to bf16.  With ``deferred``, flash attention's
+    order instead: e rounded to bf16, (e v) / sum at the output."""
+    q, k, v = _bf16(q), _bf16(k), _bf16(v)
+    x = _mm_k16(q, k.transpose(-1, -2)) * scale
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    total = e.sum(-1, keepdim=True)
+    if deferred:
+        return _bf16(_mm_k16(_bf16(e), v) / total)
+    return _bf16(_mm_k16(_bf16(_div_kernel(e, total.expand_as(e))), v))
+
+
+def _bf16_inputs(d, q_scale):
+    q, k, v = (torch.as_tensor(a) for a in _qkv((1, 2, 90, d), 90, seed=d))
+    return q * q_scale, k, v, d ** -0.5
+
+
+def _bf16_plain(q, k, v, scale):
+    return tattn.attention_reference(
+        *(t.to(torch.bfloat16) for t in (q, k, v)), scale).float()
+
+
+def _outside_bf16_contract(out, ref):
+    return int(((out - ref).abs() > ATOL_BF16 + RTOL_BF16 * ref.abs()).sum())
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("q_scale", [1.0, 8.0])
+def test_bf16_emulation_meets_bf16_contract(d, q_scale):
+    q, k, v, scale = _bf16_inputs(d, q_scale)
+    out = _attention_bf16_emulated(q, k, v, scale)
+    ref = _bf16_plain(q, k, v, scale)
+    assert _outside_bf16_contract(out, ref) == 0
+    # one bf16 rounding of P or of the output apart at most
+    assert float((out - ref).abs().max()) <= 2.0 ** -7
+
+
+def test_deferred_normalisation_at_large_logits():
+    """Flash attention's order (e rounded to bf16, divided at the output)
+    stays inside the contract at q x 8, but lands a bf16 ulp or more of an
+    output in [1, 2) from the plain version, where the kernel's order lands
+    within fp32 noise of it.  The kernel keeps the division before the
+    rounding, as the TPU kernel has it."""
+    q, k, v, scale = _bf16_inputs(256, 8.0)
+    ref = _bf16_plain(q, k, v, scale)
+    kernel = _attention_bf16_emulated(q, k, v, scale)
+    deferred = _attention_bf16_emulated(q, k, v, scale, deferred=True)
+    assert _outside_bf16_contract(deferred, ref) == 0
+    assert float((deferred - ref).abs().max()) >= 2.0 ** -7
+    assert float((kernel - ref).abs().max()) <= 2.0 ** -20
+
+
+def test_kernel_division_rounds_as_fp32_division():
+    """The kernel's reciprocal-and-correction gives e / sum exactly wherever
+    the quotient is a normal fp32, for e in [0, 1] and sums in [1, 128]
+    (the softmax's range); below that, subnormal P differ by a few
+    subnormal ulps."""
+    rng = np.random.RandomState(0)
+    total = torch.as_tensor(rng.uniform(1, 128, 1_000_000).astype(np.float32))
+    e = torch.as_tensor(rng.uniform(0, 1, 1_000_000).astype(np.float32))
+    e[:1000] = 0.0
+    e[1000:3000] = torch.exp(-torch.as_tensor(
+        rng.uniform(0, 100, 2000).astype(np.float32)))
+    got, want = _div_kernel(e, total), e / total
+    normal = want.abs() >= torch.finfo(torch.float32).tiny
+    assert torch.equal(got[normal], want[normal])
+    assert float((got - want).abs().max()) <= 2.0 ** -140

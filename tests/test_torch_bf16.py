@@ -99,7 +99,8 @@ def test_lean_and_fused_decodes_match_default(pipe, f32_out, variant):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("shape", [(2, 2, 17, 45, 64), (1, 4, 90, 90, 128)])
+@pytest.mark.parametrize("shape", [(2, 2, 17, 45, 64), (1, 4, 90, 90, 128),
+                                   (1, 4, 90, 90, 256), (1, 4, 90, 45, 256)])
 def test_bf16_plain_attention_matches_jax_kernel(shape):
     b, h, n, m, d = shape
     rng = np.random.RandomState(n)

@@ -5,6 +5,7 @@ needs nvcc."""
 
 import importlib.util
 import os
+import re
 
 import pytest
 
@@ -60,12 +61,16 @@ def test_attention_source_hashes_its_header(source):
 def test_attention_releases_stages_behind_a_proxy_fence(source):
     """Consumers hand a ring stage back only through mbar_release_stage,
     which fences their shared-memory reads against the producer's next TMA
-    write: a bare arrive on an "empty" barrier let that write overtake the
-    bf16 kernel's ldmatrix reads on an H100."""
+    write: a bare arrive on an "empty" barrier let that write overtake an
+    earlier bf16 kernel's ldmatrix reads on an H100.  Every arrive on an
+    "empty" barrier in the source is a release; the source has no arrive
+    of its own."""
     with open(os.path.join(build.CSRC_DIR, source)) as f:
         text = f.read()
-    assert "mbar_arrive(&empty" not in text
-    assert text.count("ptx::mbar_release_stage(&empty[s]);") == 2
+    arrivals = [name for name in re.findall(r"ptx::(\w+)\(&empty\[", text)
+                if name not in ("mbar_init", "mbar_wait")]
+    assert arrivals and set(arrivals) == {"mbar_release_stage"}
+    assert "mbarrier.arrive" not in text
     with open(os.path.join(build.CSRC_DIR, "ptx.cuh")) as f:
         ptx = f.read()
     body = ptx[ptx.index("void mbar_release_stage"):]
@@ -127,14 +132,18 @@ def test_stress_patches_apply_to_the_kernels():
 
 
 def test_ablation_patches_apply_to_the_kernel():
-    """scripts/attention_ablation.py patches the kernel's source text; each
-    patch still finds its text, so the script measures this kernel."""
+    """scripts/attention_ablation.py patches the kernels' source text; each
+    patch of either kernel still finds its text, so the script measures
+    these kernels."""
     path = os.path.join(os.path.dirname(__file__), "..", "scripts",
                         "attention_ablation.py")
     spec = importlib.util.spec_from_file_location("attention_ablation", path)
     ablation = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ablation)
-    for variant, patches in ablation.PATCHES.items():
-        for fname, old, _ in patches:
-            with open(os.path.join(build.CSRC_DIR, fname)) as f:
-                assert old in f.read(), (variant, fname, old)
+    assert list(ablation.VARIANTS.values()) == [ablation.PATCHES,
+                                                ablation.PATCHES_BF16]
+    for variants in ablation.VARIANTS.values():
+        for variant, patches in variants.items():
+            for fname, old, _ in patches:
+                with open(os.path.join(build.CSRC_DIR, fname)) as f:
+                    assert old in f.read(), (variant, fname, old)
