@@ -1,12 +1,13 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and dataset paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; each prints its wall time):
   1. card: torch version, card name and power limit; TF32 switched off
      for matmuls and cuDNN (the savgol and temporal convs go through cuDNN).
-  2. build: compile every CUDA source of the port from this checkout, one
-     nvcc per source, started together.
+  2. build: compile every CUDA source of the port from this checkout (the
+     two tuned attention kernels and the general one), one nvcc per
+     source, started together.
   3. kernels, then kernels (bf16): each instance of the attention kernel
      against its plain PyTorch version at the shapes the serving path
      gives it (float32 at atol 2e-5 / rtol 1e-4; bfloat16 compared in
@@ -17,10 +18,22 @@ Phases (any failure exits non-zero; each prints its wall time):
      a call.  Untimed, the same check at edge shapes (N in {1, 17, 128,
      200}, M in {1, 45, 90, 128}, d in {64, 128, 256}, and 2 * SMs + 1
      heads, one more item than the bf16 kernel's persistent grid takes in
-     two rounds) and with logits near +-40; a misaligned view must be
-     refused.  Each main-path shape is held to the plain version again on
-     300 more launches, each edge shape on 10, so that a race that fails
-     some launches shows.
+     two rounds) and with logits near +-40; a misaligned view must go to
+     the general kernel, match the plain version and leave the tuned
+     counters where they were.  Each main-path shape is held to the plain
+     version again on 300 more launches, each edge shape on 10, so that a
+     race that fails some launches shows.
+  3b. kernels (general): the general kernel (attention_general.cu) in both
+     dtypes against its plain version at N = M = 180 with d = 32 and 96,
+     M = 300 with N = 17 and d = 128, d = 50 with 200-byte rows, N = M =
+     d = 1, 2 * SMs + 1 heads and logits near +-40, each again on 10 more
+     launches, every launch on its counter; timed at the encoder chunk of
+     a 120-frame, 96-wide-head config (B*H = 512, N = M = 180, d = 96)
+     beside its bound and SDPA.  Then the wide run: a random-weight
+     generator of that config (decoder heads of 32) serves 4 streams x 120
+     frames through the runner on the card and on the CPU (positions
+     within 1e-3, identical picks), every attention launch on the general
+     kernel, as many as its layers imply; once more in bf16.
   4. slice: the full-width model (random weights from a NumPy seed) serves
      64 synthetic clips x 240 frames against a 2048-window character
      database: featurize -> windows -> encode -> batched stream runner with
@@ -62,6 +75,22 @@ Phases (any failure exits non-zero; each prints its wall time):
      deterministic at 2 streams x 120 frames, bf16 within 2e-3 of float32
      (picks at least 90% identical), cvae_dtype=bf16 within 2e-3 with
      identical picks, lean_decode and fuse_decodes within 1e-4.
+  10. dataset: the offline chain through the port's CLIs in-process on 60
+     synthetic BVH clips of 1,200 frames (the 30 styles walking and
+     running; 144,000 frames mirrored, a 187 MB database.bin):
+     generate_database, MotionDataset (norm.npz), collect_features
+     cnt-norm (6,960 windows, 56 float32 launches) and character
+     (Neutral_Princess running and walking: 4,560 windows, 36 launches),
+     launch counts exact; characterize --src-dir on 8 clips with the
+     written norm files, every output finite with its frame count; then 4
+     clips through the build and MotionDataset on the CPU too (integer
+     blocks identical, floats within 2e-4, contact flips at most 0.1%,
+     norm.npz within 1e-4) and their windows encoded on both (encoded
+     within 5e-4, cnt 5e-3).  Build frames/s, encode windows/s and the
+     character export's savez_compressed are printed on lines of their
+     own.
+  The general kernel's counter stays at 0 through phases 4-10: the
+  shipped config never leaves the tuned kernels.
 
 The line before the last is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -76,6 +105,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -88,13 +118,14 @@ sys.path.insert(0, REPO)
 
 import torch  # noqa: E402
 
-from mocha_sigasia2023_torch.cli import characterize  # noqa: E402
+from mocha_sigasia2023_torch.cli import (  # noqa: E402
+    characterize, collect_features, generate_database)
 from mocha_sigasia2023_torch.data.dataset import (  # noqa: E402
-    compute_norm_stats, window_xy_features)
+    MotionDataset, compute_norm_stats, window_xy_features)
 from mocha_sigasia2023_torch.data.preprocess import featurize_clip  # noqa: E402
 from mocha_sigasia2023_torch.data.synthetic import make_mocha_bvh_data  # noqa: E402
 from mocha_sigasia2023_torch.data.windows import (  # noqa: E402
-    padded_window_indices, window_features)
+    full_window_indices, padded_window_indices, window_features)
 from mocha_sigasia2023_torch.io import bvh  # noqa: E402
 from mocha_sigasia2023_torch.models.cvae import CVAEConfig, init_cvae  # noqa: E402
 from mocha_sigasia2023_torch.models.generator import (  # noqa: E402
@@ -107,6 +138,7 @@ from mocha_sigasia2023_torch.runtime.live import (  # noqa: E402
 from mocha_sigasia2023_torch.runtime.stream import (  # noqa: E402
     build_consts, cast_database, make_batch_runner, stack_consts,
     stack_stream_inputs)
+from mocha_sigasia2023_torch.utils import get_config  # noqa: E402
 
 # H100 SXM data sheet: HBM bandwidth, dense TF32 and bf16 tensor-core rates,
 # and the fp32 rate outside the tensor cores
@@ -125,7 +157,9 @@ KERNEL_DTYPES = {
     torch.bfloat16: ((ATOL_BF16, RTOL_BF16), PEAK_BF16_FLOPS,
                      "launches_bf16"),
 }
+LAUNCH_COUNTERS = ("launches", "launches_bf16", "launches_general")
 WINDOW_PAD = 60 // 4   # featurize yields T - window//4 windows per clip
+# (at the shipped 60-frame windows)
 # the slice: the JAX package's e2e bench workload (bench.py:399-530)
 STREAMS, FRAMES, DB_WINDOWS = 64, 240, 2048
 REPEATS = 3
@@ -334,8 +368,8 @@ def repeat_check(name, q, k, v, scale, reps):
 
 
 def attention_edge_checks(dev, dtype=torch.float32):
-    """Edge shapes, large logits and a refused misaligned view, untimed;
-    returns the largest abs error seen."""
+    """Edge shapes, large logits and a misaligned view (which goes to the
+    general kernel), untimed; returns the largest abs error seen."""
     atol, rtol = KERNEL_DTYPES[dtype][0]
     tag = "attention" if dtype == torch.float32 else f"attention {dtype}"
     rng = np.random.RandomState(1)
@@ -372,18 +406,35 @@ def attention_edge_checks(dev, dtype=torch.float32):
         if heads == LARGE_LOGIT_HEADS:
             max_abs, _ = check_attention("large logits", q, k, v, d ** -0.5)
             worst = max(worst, max_abs)
+    b, h = LARGE_LOGIT_HEADS
+    q, k, v = head_views(rng, b, h, n, m, d, dev, dtype)
     flat = torch.empty(b * n * h * d + 1, device=dev, dtype=dtype)[1:]
     bad = flat.view(b, n, h, d).transpose(1, 2)   # one element off alignment
-    before = launches(dtype)
-    try:
-        attention.fused_attention(bad, k, v, scale=d ** -0.5)
-    except ValueError as e:
-        log(f"[kernel] {tag}: misaligned view refused ({e})")
-    else:
-        raise RuntimeError(f"{tag}: a misaligned view was not refused")
-    check(launches(dtype) == before,
-          f"{tag}: the refused call counted a launch")
+    bad.copy_(q)
+    before = all_launches()
+    check(attention._route(bad, k, v) == "general",
+          f"{tag}: a misaligned view was not routed to the general kernel")
+    max_abs, _ = check_attention("misaligned view", bad, k, v, d ** -0.5)
+    after = all_launches()
+    check(after["launches_general"] == before["launches_general"] + 1
+          and all(after[c] == before[c] for c in ("launches", "launches_bf16")),
+          f"{tag}: the misaligned view's launch counts moved from {before} "
+          f"to {after}")
+    log(f"[kernel] {tag}: a misaligned view went to the general kernel and "
+        f"matches the plain version (max abs {max_abs:.3e}); the tuned "
+        "counters did not move")
     return worst
+
+
+def all_launches():
+    """Every launch counter of fused_attention."""
+    return {c: getattr(attention.fused_attention, c)
+            for c in LAUNCH_COUNTERS}
+
+
+def reset_launches():
+    for c in LAUNCH_COUNTERS:
+        setattr(attention.fused_attention, c, 0)
 
 
 # CUtensorMapDataType of the kernels' maps
@@ -468,24 +519,214 @@ def kernel_phase(dev, dtype=torch.float32):
 
 
 # ---------------------------------------------------------------------------
+# the general kernel: every shape outside the tuned envelope
+# ---------------------------------------------------------------------------
+
+# timed: the encoder chunk of a config with 120-frame windows (180 tokens)
+# and encoder heads of 96 (WIDE_CONFIG)
+GENERAL_SHAPE = ("wide encoder chunk", 128, 4, 180, 180, 96)
+# untimed, held to the plain version: (batch, heads, query rows, key rows,
+# head dim); more than 128 keys, head dims off the multiples of 64, one of
+# everything
+GENERAL_EDGE_SHAPES = [(2, 3, 180, 180, 32), (2, 3, 180, 180, 96),
+                       (2, 3, 17, 300, 128), (1, 1, 1, 1, 1)]
+GENERAL_ROWS_D = 50   # contiguous (B, H, rows, 50): 200-byte fp32 rows
+DESIGN_GENERAL = ("two passes over 64-key tiles (row max and sum, then P = "
+                  "e / sum in v's dtype and P v); one CTA of 256 threads per "
+                  "(batch, head, 16 query rows, 64 output columns); q and k "
+                  "staged in 64-column chunks and v in 64 x 64 blocks "
+                  "through shared memory by plain loads; fp32 FMA on the "
+                  "CUDA cores; no TMA, element alignment only")
+
+
+def general_cases(rng, dev, dtype):
+    """(name, q, k, v) of the general kernel's untimed checks."""
+    cases = [(f"N={n},M={m},d={d}", *head_views(rng, b, h, n, m, d, dev,
+                                                dtype))
+             for b, h, n, m, d in GENERAL_EDGE_SHAPES]
+    d = GENERAL_ROWS_D
+    rows = [torch.as_tensor(rng.standard_normal((2, 3, r, d)).astype(
+        np.float32), device=dev).to(dtype) for r in (90, 90, 90)]
+    cases.append((f"d={d}, {d * rows[0].element_size()}-byte rows", *rows))
+    b, h, _, _, _ = persistent_tail_shape(dev)
+    cases.append((f"{b * h} heads (2 x SMs + 1)",
+                  *head_views(rng, b, h, 180, 180, 32, dev, dtype)))
+    q, k, v = head_views(rng, 2, 3, 180, 180, 96, dev, dtype)
+    cases.append((f"large logits (q x {LARGE_LOGIT_Q_SCALE:g})",
+                  q * LARGE_LOGIT_Q_SCALE, k, v))
+    return cases
+
+
+def general_kernel_phase(dev, dtype=torch.float32):
+    """The general kernel for ``dtype``: held to its plain version at the
+    edge cases (each again on EDGE_REPEATS more launches), every launch on
+    the general counter and none on the tuned ones; then timed at
+    GENERAL_SHAPE.  Returns (a row for the timed shape, the checks' max
+    abs)."""
+    tag = "attention general" + ("" if dtype == torch.float32
+                                 else f" {dtype}")
+    rng = np.random.RandomState(2)
+    before = all_launches()
+    worst = 0.0
+    cases = general_cases(rng, dev, dtype)
+    for name, q, k, v in cases:
+        check(attention._route(q, k, v) == "general",
+              f"{tag} {name}: routed to the tuned kernels")
+        scale = q.shape[-1] ** -0.5
+        max_abs, _ = check_attention(name, q, k, v, scale)
+        repeat_check(name, q, k, v, scale, EDGE_REPEATS)
+        worst = max(worst, max_abs)
+    after = all_launches()
+    want = before["launches_general"] + (1 + EDGE_REPEATS) * len(cases)
+    check(after["launches_general"] == want
+          and after["launches"] == before["launches"]
+          and after["launches_bf16"] == before["launches_bf16"],
+          f"{tag}: launch counts {after}, want {want} general launches and "
+          f"no tuned ones since {before}")
+    log(f"[kernel] {tag}: {len(cases)} cases ({', '.join(c[0] for c in cases)})"
+        f" within the dtype's tolerance, max abs {worst:.3e}; each held "
+        f"again on {EDGE_REPEATS} more launches, all on the general kernel")
+
+    name, b, h, n, m, d = GENERAL_SHAPE
+    q, k, v = head_views(rng, b, h, n, m, d, dev, dtype)
+    scale = d ** -0.5
+    max_abs, max_rel = check_attention(name, q, k, v, scale)
+    ms, host_ms = time_ms(
+        lambda: attention.fused_attention(q, k, v, scale=scale))
+    plain_ms, _ = time_ms(
+        lambda: attention.attention_reference(q, k, v, scale))
+    lib_ms, _ = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, scale=scale))
+    bound_ms, bound_by = attention_bound_ms(b, h, n, m, d, dtype)
+    row = {"shape": name, "dtype": str(dtype).replace("torch.", ""),
+           "B": b, "H": h, "N": n, "M": m, "d": d,
+           "max_abs_err": max(max_abs, worst), "max_rel_err": max_rel,
+           "repeated_launches_checked": EDGE_REPEATS * len(cases),
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "roofline_share": bound_ms / ms, "host_ms": host_ms}
+    log(f"[kernel] {tag} {name} (B={b},H={h},N={n},M={m},d={d}): max abs "
+        f"{max_abs:.3e} max rel {max_rel:.3e} | kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), roofline share {bound_ms / ms:.3f}; host "
+        f"{1e3 * host_ms:.1f} us a call")
+    torch.cuda.synchronize()
+    return [row], worst
+
+
+def general_phase(dev):
+    """The general kernel in both dtypes, then the wide run.  Returns
+    ({dtype: rows}, [max abs per dtype], the wide run's result, {dtype:
+    its general launches})."""
+    rows, worst = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        rows[dtype], w = general_kernel_phase(dev, dtype)
+        worst.append(w)
+    result, l32, l16 = wide_run({}, dev)
+    return rows, worst, result, {torch.float32: l32, torch.bfloat16: l16}
+
+
+# a generator config outside the tuned envelope: 120-frame windows (180
+# tokens), encoder heads of 96 and decoder heads of 32, full widths
+# otherwise; every one of its attentions goes to the general kernel
+WIDE_CONFIG = dict(nframes=120, encoder_dim_head=96, decoder_dim_head=32)
+WIDE_STREAMS, WIDE_FRAMES, WIDE_DB_WINDOWS = 4, 120, 256
+
+
+def wide_expected_launches(cfg, streams=WIDE_STREAMS, frames=WIDE_FRAMES):
+    """General-kernel launches of the wide run: every attention layer of
+    the encode chunks and of the decodes (expected_launches)."""
+    return expected_launches(cfg, [streams * frames], frames)
+
+
+def wide_run(cvae_kw, dev, *, streams=WIDE_STREAMS, frames=WIDE_FRAMES,
+             db_windows=WIDE_DB_WINDOWS, cfg=None):
+    """A random-weight generator of WIDE_CONFIG (``cfg`` overrides it)
+    serves ``streams`` x ``frames`` through the slice's runner,
+    deterministic, on ``dev`` and on the CPU: positions within 1e-3,
+    identical picks, and on the card every attention launch on the general
+    kernel, as many as the layers imply.  Then once more on ``dev`` with
+    bf16 weights and compute_dtype=bf16 (finite, the same count of general
+    launches).  Returns (result, float32 general launches, bf16 general
+    launches)."""
+    cfg = cfg or GeneratorConfig(**WIDE_CONFIG)
+    cvae_cfg = CVAEConfig(output_seq=cfg.num_tokens, **cvae_kw)
+    expected = wide_expected_launches(cfg, streams, frames)
+    clips = [make_mocha_bvh_data(T=frames + cfg.nframes // 4, seed=70 + i)
+             for i in range(streams)]
+    outs, counts = {}, {}
+    for d in (dev, torch.device("cpu")):
+        gen = init_generator(cfg, seed=3, device=d)
+        cvae = init_cvae(cvae_cfg, seed=4, device=d)
+        norm, consts, parents = character_setup(gen, db_windows, d)
+        reset_launches()
+        out, _, t_run = run_slice(gen, cvae, norm, consts, parents, clips, d,
+                                  deterministic=True,
+                                  root_dtype=torch.float64, keep_encoded=True)
+        counts[d.type] = all_launches()
+        outs[d.type] = {k: v.cpu() for k, v in out.items()}
+        if d.type == dev.type:
+            dev_run = (gen, cvae, norm, consts, parents, t_run)
+    g, c = outs[dev.type], outs["cpu"]
+    check_outputs(g, frames, streams)
+    check_picks("wide", consts, c["encoded"], g["nn_index"], c["nn_index"])
+    errs = max_errors(g, c, POS_KEYS, where=True)
+    check(max(e[0] for e in errs.values()) <= 1e-3,
+          f"wide: positions differ between {dev.type} and cpu: {errs}")
+    got = counts[dev.type]
+    check_launches(dev, got == {"launches": 0, "launches_bf16": 0,
+                                "launches_general": expected},
+                   f"wide: launch counts {got}, want {expected} general "
+                   "launches and no tuned ones")
+
+    gen, cvae, norm, consts, parents, t_run = dev_run
+    reset_launches()
+    out16, _, _ = run_slice(copy.deepcopy(gen).to(torch.bfloat16),
+                            copy.deepcopy(cvae).to(torch.bfloat16), norm,
+                            consts, parents, clips, dev, deterministic=True,
+                            root_dtype=torch.float32,
+                            compute_dtype=torch.bfloat16)
+    got16 = all_launches()
+    check_outputs(out16, frames, streams)
+    check_launches(dev, got16 == {"launches": 0, "launches_bf16": 0,
+                                  "launches_general": expected},
+                   f"wide bf16: launch counts {got16}, want {expected} "
+                   "general launches and no tuned ones")
+    result = {"config": WIDE_CONFIG, "tokens": cfg.num_tokens,
+              "streams": streams, "frames": frames,
+              "database_windows": db_windows,
+              "runner_s": t_run, "max_abs_position_err": errs,
+              "nn_picks_identical": True, "launches": got,
+              "launches_bf16_run": got16, "expected_general": expected,
+              "bf16_max_abs_vs_float32": max_errors(
+                  {k: v.cpu() for k, v in out16.items()}, g, POS_KEYS)}
+    log(f"[wide] {json.dumps(result)}")
+    return (result, got["launches_general"], got16["launches_general"])
+
+
+# ---------------------------------------------------------------------------
 # the serving slice
 # ---------------------------------------------------------------------------
 
 
 def character_from_clip(gen, cha_clip, dev, compute_dtype=None):
     """Norm stats and session constants from one character clip (demo
-    mode: no dataset), as the JAX package's e2e benchmark derives them."""
+    mode: no dataset), as the JAX package's e2e benchmark derives them;
+    windows of the generator's ``nframes``."""
+    window = gen.cfg.nframes
     feats = featurize_clip(
         torch.as_tensor(cha_clip["rotations"], dtype=torch.float32, device=dev),
         torch.as_tensor(cha_clip["positions"], dtype=torch.float32, device=dev),
         cha_clip["order"], cha_clip["names"], cha_clip["parents"])
-    w = window_features(feats, 60, 10, padded=False)
+    w = window_features(feats, window, 10, padded=False)
     X, Y, root = window_xy_features(w["rotations"], w["positions"],
                                     w["velocities"], w["angular_velocities"],
                                     feats["bone_parents"])
     norm = compute_norm_stats(X.cpu().numpy(), Y.cpu().numpy(),
                               root.cpu().numpy())
     cha = rtf.clip_stream_features_device(cha_clip, gen, norm,
+                                          window=window,
                                           compute_dtype=compute_dtype,
                                           device=dev)
     cnt_norm = rtf.compute_cnt_norm(cha["encoded"], cha["cnt"])
@@ -497,8 +738,8 @@ def character_setup(gen, db_windows, dev):
     """The slice's character: one synthetic clip of ``db_windows``
     windows."""
     return character_from_clip(
-        gen, make_mocha_bvh_data(T=db_windows + WINDOW_PAD, seed=10_000,
-                                 walk_speed=60.0), dev)
+        gen, make_mocha_bvh_data(T=db_windows + gen.cfg.nframes // 4,
+                                 seed=10_000, walk_speed=60.0), dev)
 
 
 def run_slice(gen, cvae, norm, consts, parents, clips, dev, *,
@@ -516,7 +757,7 @@ def run_slice(gen, cvae, norm, consts, parents, clips, dev, *,
     generator = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     frame0, xs = rtf.batch_stream_features_device(
-        clips, gen, norm, emit_cnt=False,
+        clips, gen, norm, window=gen.cfg.nframes, emit_cnt=False,
         compute_dtype=runner_kw.get("compute_dtype"), device=dev)
     sync(dev)
     t1 = time.perf_counter()
@@ -1262,18 +1503,339 @@ def cli_bf16_run(cfg, dev, root, *, clips=CLI_CLIPS, config=None):
     return result, l16
 
 
+# ---------------------------------------------------------------------------
+# the offline dataset path: database build, norm stats, feature exports
+# ---------------------------------------------------------------------------
+
+DATASET_CLIPS = 60               # the 30 styles walking and running
+DATASET_FRAMES = 1200            # 20 s a clip at 60 fps
+DATASET_ACTIONS = ("Walk", "Run")
+DATASET_STYLE = 17               # Neutral_Princess in configs/dataset.yaml
+DATASET_CHARACTER_ACTIONS = (6, 7)   # Run, Walk
+DATASET_CHARACTERIZE_CLIPS = 8
+DATASET_SUBSET = 4               # clips held to the port on the CPU
+DATASET_WINDOW, DATASET_STEP = 60, 20   # collect_features' windows
+ENCODE_BATCH = 256               # runtime/features.encode_windows
+CONTACT_FLIPS_MAX = 1e-3         # share of contact states
+
+
+def dataset_names(clips=DATASET_CLIPS):
+    """File stems: each style of the port's dataset.yaml walking and
+    running, Neutral_Princess first, so that any first few hold the
+    exported character."""
+    styles = get_config(generate_database.DEFAULT_DATASET_CONFIG)[
+        "mocha_style_names"]
+    styles = styles[DATASET_STYLE:] + styles[:DATASET_STYLE]
+    pairs = [(s, a) for s in styles for a in DATASET_ACTIONS][:clips]
+    return [f"{a}_{s}_{i:03d}" for i, (s, a) in enumerate(pairs)]
+
+
+def dataset_expected(cfg, clips=DATASET_CLIPS, frames=DATASET_FRAMES):
+    """Windows and float32 attention launches of the dataset phase's two
+    exports: cnt-norm windows every 20 frames of each range (both
+    variants of every clip), character windows range(60, T) of the
+    character's ranges; one launch per encoder layer per batch of 256."""
+    vocab = get_config(generate_database.DEFAULT_DATASET_CONFIG)
+    style = vocab["mocha_style_names"][DATASET_STYLE]
+    actions = [vocab["mocha_action_names"][a] + "_"
+               for a in DATASET_CHARACTER_ACTIONS]
+    character = [n for n in dataset_names(clips)
+                 if style in n and n.startswith(tuple(actions))]
+    cnt_windows = 2 * clips * len(full_window_indices(
+        frames, DATASET_WINDOW, DATASET_STEP))
+    char_windows = 2 * len(character) * (frames - DATASET_WINDOW)
+
+    def launches(w):
+        return -(-w // ENCODE_BATCH) * cfg.encoder_depth
+
+    return {"frames": 2 * clips * frames, "ranges": 2 * clips,
+            "cnt_norm_windows": cnt_windows,
+            "cnt_norm_launches": launches(cnt_windows),
+            "character_ranges": 2 * len(character),
+            "character_windows": char_windows,
+            "character_launches": launches(char_windows)}
+
+
+def quiet(fn, *args):
+    """fn(*args) with its printout captured; returns (result, seconds,
+    printout)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, time.perf_counter() - t0, buf.getvalue()
+
+
+@contextlib.contextmanager
+def timed_savez():
+    """Inside the block, np.savez_compressed adds its wall time to the
+    yielded dict's "s" (the character export's file write, timed within
+    the CLI's own call)."""
+    real, spent = np.savez_compressed, {"s": 0.0}
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            spent["s"] += time.perf_counter() - t0
+
+    np.savez_compressed = timed
+    try:
+        yield spent
+    finally:
+        np.savez_compressed = real
+
+
+def check_tuned_launches(dev, tag, expected):
+    got = all_launches()
+    check_launches(dev, got == {"launches": expected, "launches_bf16": 0,
+                                "launches_general": 0},
+                   f"{tag}: launch counts {got}, want exactly {expected} "
+                   "float32 launches and no others")
+    return got["launches"]
+
+
+def dataset_phase(cfg, dev, root, *, clips=DATASET_CLIPS,
+                  frames=DATASET_FRAMES,
+                  characterize_clips=DATASET_CHARACTERIZE_CLIPS,
+                  subset=DATASET_SUBSET, config=None):
+    """The offline chain through the port's CLIs in-process: build the
+    database of ``clips`` synthetic BVH clips (mirrored), MotionDataset
+    (writes norm.npz), collect_features cnt-norm and character
+    (Neutral_Princess running and walking), then characterize --src-dir on
+    ``characterize_clips`` clips with the written norm files; then a
+    ``subset`` of the clips held to the port on the CPU.  Returns (result,
+    float32 launches of the two exports)."""
+    t_phase = time.perf_counter()
+    exp = dataset_expected(cfg, clips, frames)
+    names = dataset_names(clips)
+    bvh_dir, data = os.path.join(root, "bvh"), os.path.join(root, "data")
+    os.makedirs(bvh_dir)
+    t0 = time.perf_counter()
+    for i, name in enumerate(names):
+        run = name.startswith("Run")
+        bvh.save(os.path.join(bvh_dir, name + ".bvh"),
+                 make_mocha_bvh_data(T=frames, seed=3000 + i,
+                                     walk_speed=(150.0 if run else 60.0)
+                                     + 2.0 * (i % 10)))
+    write_s = time.perf_counter() - t0
+    dev_args = ["--device", dev.type]
+    cfg_args = ["--config", config] if config else []
+
+    reset_launches()
+    db, build_s, _ = quiet(generate_database.main,
+                           ["--bvh-dir", bvh_dir, "--out", data, *dev_args])
+    check(db["bone_positions"].shape[0] == exp["frames"]
+          and len(db["range_starts"]) == exp["ranges"],
+          f"dataset: database of {db['bone_positions'].shape[0]} frames in "
+          f"{len(db['range_starts'])} ranges, want {exp}")
+    vocab = get_config(generate_database.DEFAULT_DATASET_CONFIG)[
+        "mocha_style_names"]
+    styles = {i for i, st in enumerate(vocab) if any(st in n for n in names)}
+    check(set(db["style_labels"].tolist()) == styles,
+          f"dataset: style labels {sorted(set(db['style_labels'].tolist()))}"
+          f", want {sorted(styles)}")
+    db_mb = os.path.getsize(os.path.join(data, "database.bin")) / 1e6
+    check_tuned_launches(dev, "dataset build", 0)
+    log(f"[dataset] {clips} BVH clips of {frames} frames written in "
+        f"{write_s:.2f} s; generate_database {build_s:.2f} s for "
+        f"{exp['frames']} frames in {exp['ranges']} ranges ({db_mb:.1f} MB)")
+
+    t0 = time.perf_counter()
+    ds = MotionDataset(data, device=dev)
+    dataset_s = time.perf_counter() - t0
+    check(os.path.isfile(os.path.join(data, "norm.npz"))
+          and len(ds) == exp["cnt_norm_windows"],
+          f"dataset: MotionDataset has {len(ds)} windows, want "
+          f"{exp['cnt_norm_windows']}, or wrote no norm.npz")
+    del ds
+    log(f"[dataset] MotionDataset {dataset_s:.2f} s for "
+        f"{exp['cnt_norm_windows']} windows (norm.npz written)")
+
+    common = ["--data-dir", data, "--random-init", *dev_args, *cfg_args]
+    reset_launches()
+    _, cnt_s, said = quiet(collect_features.main, ["cnt-norm", *common])
+    cnt_launches = check_tuned_launches(dev, "cnt-norm",
+                                        exp["cnt_norm_launches"])
+    check(f"over {exp['cnt_norm_windows']} windows" in said,
+          f"cnt-norm: {said.strip()}")
+    log(f"[dataset] cnt-norm {cnt_s:.2f} s for {exp['cnt_norm_windows']} "
+        f"windows, {cnt_launches} float32 launches")
+    char_path = os.path.join(root, "princess_feature.npz")
+    reset_launches()
+    with timed_savez() as savez:
+        feats, char_s, _ = quiet(collect_features.main, [
+            "character", *common, "--styles", str(DATASET_STYLE),
+            "--actions", *map(str, DATASET_CHARACTER_ACTIONS), "--out",
+            char_path])
+    char_launches = check_tuned_launches(dev, "character",
+                                         exp["character_launches"])
+    per = frames - DATASET_WINDOW
+    n_char = exp["character_ranges"]
+    check(feats["encoded"].shape[0] == exp["character_windows"]
+          and feats["range_starts"].tolist() == [per * i
+                                                 for i in range(n_char)]
+          and feats["range_stops"].tolist() == [per * (i + 1)
+                                                for i in range(n_char)],
+          f"character: {feats['encoded'].shape[0]} windows, ranges "
+          f"{feats['range_starts'].tolist()}-{feats['range_stops'].tolist()}")
+    savez_s = savez["s"]
+    feature_mb = os.path.getsize(char_path) / 1e6
+    del feats
+    log(f"[dataset] character {char_s:.2f} s for {exp['character_windows']}"
+        f" windows, {char_launches} float32 launches; savez_compressed of "
+        f"the export within it {savez_s:.2f} s ({feature_mb:.1f} MB)")
+
+    src = os.path.join(root, "src")
+    os.makedirs(src)
+    for name in names[:characterize_clips]:
+        shutil.copy(os.path.join(bvh_dir, name + ".bvh"), src)
+    out_dir = os.path.join(root, "characterized")
+    _, char_cli_s, n_groups, char_cli_launches = run_cli(
+        ["--src-dir", src, "--cha", os.path.join(bvh_dir, names[0] + ".bvh"),
+         "--random-init", "--norm", os.path.join(data, "norm.npz"),
+         "--cnt-norm", os.path.join(data, "cnt_norm.npz"), *dev_args,
+         "--out", out_dir, *cfg_args])
+    n_out = len(padded_window_indices(frames, 60, 1)[0])
+    want = cli_expected_launches(cfg, [frames] * characterize_clips)
+    check_launches(dev, char_cli_launches >= want,
+                   f"dataset characterize: {char_cli_launches} float32 "
+                   f"launches, want at least {want}")
+    outs = read_outputs(out_dir)
+    check(len(outs) == 3 * characterize_clips,
+          f"dataset characterize: {len(outs)} output files")
+    for f, d in outs.items():
+        check(d["rotations"].shape[0] == n_out
+              and np.isfinite(d["rotations"]).all()
+              and np.isfinite(d["positions"]).all(),
+              f"dataset characterize: {f} has {d['rotations'].shape[0]} "
+              f"frames (want {n_out}) or is not finite")
+
+    log(f"[dataset] characterize --src-dir {char_cli_s:.2f} s for "
+        f"{characterize_clips} x {n_out} frames, {char_cli_launches} float32"
+        " launches; every output finite with its frame count")
+    parity = dataset_parity(cfg, dev, root, bvh_dir, names[:subset])
+    phase_s = time.perf_counter() - t_phase
+    result = {
+        "clips": clips, "frames_per_clip": frames, **exp,
+        "database_mb": db_mb, "bvh_write_s": write_s,
+        "build_s": build_s, "build_frames_per_s": exp["frames"] / build_s,
+        "motion_dataset_s": dataset_s, "cnt_norm_s": cnt_s,
+        "cnt_norm_windows_per_s": exp["cnt_norm_windows"] / cnt_s,
+        "character_s": char_s,
+        "character_windows_per_s": exp["character_windows"] / char_s,
+        "character_savez_compressed_s": savez_s,
+        "character_file_mb": feature_mb,
+        "characterize_clips": characterize_clips,
+        "characterize_frames": characterize_clips * n_out,
+        "characterize_s": char_cli_s, "characterize_groups": n_groups,
+        "characterize_float32_launches": char_cli_launches,
+        "parity": parity, "phase_s": phase_s}
+    log(f"[dataset] {json.dumps(result)}")
+    return result, cnt_launches + char_launches
+
+
+FEAT_ATOL = 2e-4   # the port's featurize tolerance (test_torch_features.py)
+FPS = 60.0
+
+
+def float_block_tol(key, db):
+    """The bar of a float block of the database, device against CPU:
+    FEAT_ATOL, and for the velocities, central differences of positions
+    times the frame rate, also two float32 spacings of the largest
+    coordinate times the frame rate.  A 20 s clip carries its root 12-30 m
+    from the origin, where one float32 spacing of a position is 1-2 um and
+    moves a velocity by about 1e-4 m/s."""
+    if key != "bone_velocities":
+        return FEAT_ATOL
+    far = float(np.abs(db["bone_positions"]).max())
+    return FEAT_ATOL + 2.0 * FPS * float(np.spacing(np.float32(far)))
+
+
+def dataset_parity(cfg, dev, root, bvh_dir, names):
+    """``names``' clips through generate_database and MotionDataset on
+    ``dev`` and on the CPU, and the CPU database's windows every 20 frames
+    encoded on both with the same seeded weights and the CPU's norm
+    stats: integer blocks identical, float blocks within 2e-4 (velocities
+    within float_block_tol), contact flips at most 0.1% (printed with
+    their frames), norm.npz within 1e-4, encoded within 5e-4 and cnt
+    within 5e-3."""
+    sub = os.path.join(root, "subset")
+    os.makedirs(sub)
+    for name in names:
+        shutil.copy(os.path.join(bvh_dir, name + ".bvh"), sub)
+    cpu = torch.device("cpu")
+    dbs, norms = {}, {}
+    for d in (dev, cpu):
+        out = os.path.join(root, f"subset_{d.type}")
+        dbs[d.type], _, _ = quiet(generate_database.main, [
+            "--bvh-dir", sub, "--out", out, "--device", d.type])
+        MotionDataset(out, device=d)
+        norms[d.type] = dict(np.load(os.path.join(out, "norm.npz")))
+    g, c = dbs[dev.type], dbs["cpu"]
+    errs = {}
+    for k in c:
+        check(g[k].shape == c[k].shape and g[k].dtype == c[k].dtype,
+              f"dataset parity: {k} is {g[k].dtype}{g[k].shape} on "
+              f"{dev.type}, {c[k].dtype}{c[k].shape} on the CPU")
+        if k == "contact_states":
+            flips = np.argwhere(g[k] != c[k])
+            errs[k] = {"flips": len(flips), "of": int(c[k].size),
+                       "frames": flips[:, 0].tolist()[:50]}
+            check(len(flips) <= CONTACT_FLIPS_MAX * c[k].size,
+                  f"dataset parity: {len(flips)} contact flips")
+        elif c[k].dtype == np.float32:
+            err = np.abs(g[k] - c[k])
+            tol = float_block_tol(k, c)
+            errs[k] = {"max_abs": float(err.max()), "tolerance": tol,
+                       "at_frame_bone": [int(i) for i in np.unravel_index(
+                           err.argmax(), err.shape)[:2]]}
+            check(errs[k]["max_abs"] <= tol, f"dataset parity: {k} differs "
+                  f"by {errs[k]}")
+        else:
+            check(np.array_equal(g[k], c[k]), f"dataset parity: {k} differs")
+    for k in norms["cpu"]:
+        errs[f"norm {k}"] = float(np.abs(norms[dev.type][k]
+                                         - norms["cpu"][k]).max())
+        check(errs[f"norm {k}"] <= 1e-4, f"dataset parity: norm.npz {k} "
+              f"differs by {errs[f'norm {k}']:.3e}")
+    enc = {}
+    for d in (dev, cpu):
+        gen = init_generator(cfg, seed=1777, device=d)
+        e, cn, _, _ = rtf.encode_database(c, gen, norms["cpu"], device=d)
+        enc[d.type] = (e.cpu(), cn.cpu())
+    errs["encoded"] = float((enc[dev.type][0] - enc["cpu"][0]).abs().max())
+    errs["cnt"] = float((enc[dev.type][1] - enc["cpu"][1]).abs().max())
+    errs["windows"] = int(enc["cpu"][0].shape[0])
+    check(errs["encoded"] <= 5e-4 and errs["cnt"] <= 5e-3,
+          f"dataset parity: encoded {errs['encoded']:.3e}, cnt "
+          f"{errs['cnt']:.3e}")
+    log(f"[dataset] {dev.type} vs cpu on {len(names)} clips: "
+        f"{json.dumps(errs)}")
+    return errs
+
+
+def build_sources():
+    """Every CUDA source of the port: one per tuned dtype, and the
+    general kernel's."""
+    return list(dict.fromkeys(src for kernels in attention.ROUTES.values()
+                              for src, _, _ in kernels.values()))
+
+
 def build_phase():
     """Every CUDA source of the port, one nvcc each, started together."""
     t0 = time.perf_counter()
-    sources = [src for src, _, _ in attention.KERNELS.values()]
+    sources = build_sources()
     build.build_all(sources)
     for src in sources:
         info = build.BUILD_INFO[src]
         log(f"[build] {src}: {info['seconds']:.2f} s -> {info['path']}")
         for line in info["log"].splitlines():
             log(f"[build]   {line}")
-    for dtype in attention.KERNELS:
-        attention.load_library(dtype)
+    for route, kernels in attention.ROUTES.items():
+        for dtype in kernels:
+            attention.load_library(dtype, route)
     log(f"[build] phase {time.perf_counter() - t0:.2f} s")
 
 
@@ -1305,9 +1867,22 @@ def main():
     attn_rows, edge_max_abs = phase("kernels", kernel_phase, dev)
     bf16_rows, bf16_edge_max_abs = phase("kernels (bf16)", kernel_phase, dev,
                                          torch.bfloat16)
+    general_rows, general_max_abs, _, wide_launches = phase(
+        "kernels (general)", general_phase, dev)
 
     cfg = GeneratorConfig()
     cvae_cfg = CVAEConfig(output_seq=cfg.num_tokens)
+    # the shipped config never leaves the tuned kernels: the general
+    # kernel's counter stays at 0 through every serving phase
+    reset_launches()
+    serving_general = {}
+
+    def no_general(name):
+        serving_general[name] = attention.fused_attention.launches_general
+        check(serving_general[name] == 0,
+              f"{name}: {serving_general[name]} general-kernel launches on "
+              "the shipped config")
+
     slice_result, launches = phase(
         "slice", slice_phase, cfg, cvae_cfg, dev, streams=STREAMS,
         frames=FRAMES, db_windows=DB_WINDOWS, repeats=REPEATS)
@@ -1317,12 +1892,15 @@ def main():
         f"{hi:.1f}), step loop {slice_result['step_loop_frames_per_s']:.1f} "
         f"frames/s on {card}")
 
+    no_general("slice")
     phase("parity", parity_phase, cfg, cvae_cfg, dev)
+    no_general("parity")
 
     with tempfile.TemporaryDirectory() as root:
         cli_result, cli_launches = phase("cli", cli_phase, cfg, dev, root)
         _, cli_bf16_launches = phase("cli --bf16", cli_bf16_run, cfg, dev,
                                      root)
+    no_general("cli")
     lo, hi = cli_result["cli_frames_per_s_range"]
     log(f"[cli] median of {CLI_REPEATS}: {cli_result['cli_frames_per_s']:.1f}"
         f" frames/s through main() (range {lo:.1f}-{hi:.1f}), slice e2e "
@@ -1340,22 +1918,42 @@ def main():
         f"{multi_result['step_loop_frames_per_s'] / slice_result['step_loop_frames_per_s']:.3f}"
         f" of the slice's; peak {multi_result['peak_memory_gb_f32']:.2f} GB; "
         f"on {card}")
+    no_general("multi")
     live_result, live_launches = phase("live", live_phase, cfg, cvae_cfg, dev)
+    no_general("live")
     log(f"[live] push_frame p50 {live_result['push_frame']['p50_ms']:.2f} ms "
         f"p99 {live_result['push_frame']['p99_ms']:.2f} ms; pipelined p50 "
         f"{live_result['push_frame_pipelined']['p50_ms']:.2f} ms p99 "
         f"{live_result['push_frame_pipelined']['p99_ms']:.2f} ms; budget "
         f"{BUDGET_MS:.1f} ms; on {card}")
     bf16_result, bf16_launches = phase("bf16", bf16_phase, cfg, cvae_cfg, dev)
+    no_general("bf16")
     lo, hi = bf16_result["e2e_frames_per_s_range"]
     log(f"[bf16] median of {REPEATS}: e2e "
         f"{bf16_result['e2e_frames_per_s']:.1f} frames/s (range {lo:.1f}-"
         f"{hi:.1f}), {bf16_result['e2e_frames_per_s'] / slice_result['e2e_frames_per_s']:.3f}"
         f" of the float32 slice's; on {card}")
 
+    with tempfile.TemporaryDirectory() as root:
+        dataset_result, dataset_launches = phase("dataset", dataset_phase,
+                                                 cfg, dev, root)
+    no_general("dataset")
+    log(f"[dataset] build {dataset_result['build_frames_per_s']:.1f} "
+        f"frames/s ({dataset_result['frames']} frames, "
+        f"{dataset_result['database_mb']:.1f} MB); encode "
+        f"{dataset_result['cnt_norm_windows_per_s']:.1f} windows/s "
+        f"(cnt-norm, {dataset_result['cnt_norm_windows']} windows) and "
+        f"{dataset_result['character_windows_per_s']:.1f} windows/s "
+        f"(character, {dataset_result['character_windows']} windows, of "
+        f"which savez_compressed "
+        f"{dataset_result['character_savez_compressed_s']:.3f} s); "
+        f"characterize {dataset_result['characterize_s']:.3f} s for "
+        f"{dataset_result['characterize_frames']} frames; phase "
+        f"{dataset_result['phase_s']:.1f} s; on {card}")
+
     def kernel_entry(name, rows, edge, source, launches_by_path,
-                     main_launches, design):
-        main_row = next(r for r in rows if r["shape"] == "decoder streams")
+                     main_launches, design, shape="decoder streams"):
+        main_row = next(r for r in rows if r["shape"] == shape)
         return {
             "name": name,
             "route": "cuda",
@@ -1371,16 +1969,25 @@ def main():
             "shapes": rows,
         }
 
+    general_paths = dict(serving_general)
     kernels = [
         kernel_entry("attention", attn_rows, edge_max_abs, attention.SOURCE,
                      {"slice": launches, "cli": cli_launches,
-                      "multi": multi_launches, "live": live_launches},
+                      "multi": multi_launches, "live": live_launches,
+                      "dataset": dataset_launches},
                      launches, DESIGN),
         kernel_entry("attention_bf16", bf16_rows, bf16_edge_max_abs,
                      attention.SOURCE_BF16,
                      {"bf16": bf16_launches, "cli_bf16": cli_bf16_launches},
                      bf16_launches, DESIGN_BF16),
     ]
+    for (dtype, rows), edge in zip(general_rows.items(), general_max_abs):
+        name = "attention_general" + ("" if dtype == torch.float32
+                                      else "_bf16")
+        kernels.append(kernel_entry(
+            name, rows, edge, attention.SOURCE_GENERAL,
+            {**general_paths, "wide": wide_launches[dtype]},
+            wide_launches[dtype], DESIGN_GENERAL, shape=GENERAL_SHAPE[0]))
     log(f"[time] whole script {time.perf_counter() - T_START:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

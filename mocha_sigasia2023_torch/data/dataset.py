@@ -1,19 +1,25 @@
-"""Windowed features + normalization stats (serving subset).
+"""Windowed features, normalization stats and the windowed dataset.
 
-Counterpart of mocha_sigasia2023_tpu/data/dataset.py:31-165: the
+Counterpart of mocha_sigasia2023_tpu/data/dataset.py:31-246: the
 finite-difference window velocities, the character-space X / parent-local
-Y window features, and the per-joint-channel norm stats.  Feature layout
-per joint (15 channels): [pos(3), xform_xy(6), vel(3), ang(3)].
+Y window features (computed on the device in chunks of windows), the
+per-joint-channel norm stats, ``MotionDataset`` over a ``database.bin``
+(which writes ``norm.npz`` beside it) and ``iterate_batches``.  Feature
+layout per joint (15 channels): [pos(3), xform_xy(6), vel(3), ang(3)].
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
+from ..io.database import load_database
 from ..kinematics import quat
+from .windows import full_window_indices
 # the window velocities are the clip's central differences, taken along
 # the window axis
 from .preprocess import central_angular_velocity as window_ang
@@ -56,6 +62,22 @@ def window_xy_features(Yrot, Ypos, Yvel, Yang, parents):
     return X, Y, root
 
 
+@torch.no_grad()
+def compute_window_features(Yrot, Ypos, Yvel, Yang, parents, batch=2048,
+                            device=None):
+    """:func:`window_xy_features` over host arrays of windows, ``batch``
+    windows at a time on ``device``; returns host (X, Y, root)."""
+    dev = resolve_device(device)
+    outs = []
+    for i in range(0, len(Yrot), batch):
+        chunk = [torch.as_tensor(np.ascontiguousarray(a[i:i + batch]),
+                                 dtype=torch.float32, device=dev)
+                 for a in (Yrot, Ypos, Yvel, Yang)]
+        outs.append([o.cpu().numpy()
+                     for o in window_xy_features(*chunk, parents)])
+    return tuple(np.concatenate([o[k] for o in outs]) for k in range(3))
+
+
 def compute_norm_stats(X, Y, root) -> Dict[str, np.ndarray]:
     """Per-joint-channel mean/std over (windows, frames) of host arrays;
     std floored with +1e-6."""
@@ -70,3 +92,67 @@ def compute_norm_stats(X, Y, root) -> Dict[str, np.ndarray]:
     return {"X_mean": X_mean, "X_std": X_std + 1e-6,
             "Y_mean": Y_mean, "Y_std": Y_std + 1e-6,
             "root_mean": root_mean, "root_std": root_std}
+
+
+class MotionDataset:
+    """Windowed motion dataset over a packed ``database.bin``: windows of
+    ``window`` frames every ``window_step`` frames within each range (short
+    windows dropped), their X / Y / root features, contacts and labels as
+    float32 / int32 host arrays.  The norm stats are written to
+    ``norm.npz`` next to the database unless it exists, and read back.
+    The features are computed on ``device`` (cuda unless given)."""
+
+    def __init__(self, data_dir: str, phase: str = "train",
+                 window: int = 60, window_step: int = 20, device=None):
+        name = "database_test.bin" if phase == "test" else "database.bin"
+        db = load_database(os.path.join(data_dir, name))
+        norm_path = os.path.join(data_dir, "norm.npz")
+
+        parents = db["bone_parents"]
+        starts, stops = db["range_starts"], db["range_stops"]
+        idx_all, labels, actions = [], [], []
+        for i in range(len(starts)):
+            idx = full_window_indices(
+                int(stops[i] - starts[i]), window, window_step) + int(starts[i])
+            idx_all.append(idx)
+            labels += [int(db["style_labels"][i])] * len(idx)
+            actions += [int(db["action_labels"][i])] * len(idx)
+        idx_all = np.concatenate(idx_all, axis=0)
+
+        X, Y, root = compute_window_features(
+            db["bone_rotations"][idx_all], db["bone_positions"][idx_all],
+            db["bone_velocities"][idx_all],
+            db["bone_angular_velocities"][idx_all], parents, device=device)
+        if not os.path.exists(norm_path):
+            np.savez_compressed(norm_path, **compute_norm_stats(X, Y, root))
+
+        self.X = X.astype(np.float32)
+        self.Y = Y.astype(np.float32)
+        self.root = root.astype(np.float32)
+        self.contact = db["contact_states"].astype(np.float32)[idx_all]
+        self.label = np.asarray(labels, dtype=np.int32)
+        self.action = np.asarray(actions, dtype=np.int32)
+        self.parents = np.asarray(parents)
+        self.norm = dict(np.load(norm_path))
+
+    def __len__(self):
+        return len(self.X)
+
+    def __getitem__(self, index):
+        return {"X": self.X[index], "Y": self.Y[index],
+                "root": self.root[index], "contact": self.contact[index],
+                "label": self.label[index]}
+
+
+def iterate_batches(dataset: MotionDataset, batch_size: int, *,
+                    shuffle: bool = True, drop_last: bool = True,
+                    seed: int = 0, epoch: int = 0) -> Iterator[Dict]:
+    """Host batches of ``dataset`` items as stacked arrays, shuffled with
+    ``RandomState(seed + epoch)``; ``drop_last`` drops a short tail."""
+    n = len(dataset)
+    order = np.arange(n)
+    if shuffle:
+        np.random.RandomState(seed + epoch).shuffle(order)
+    stop = n - (n % batch_size) if drop_last else n
+    for i in range(0, stop, batch_size):
+        yield dataset[order[i:i + batch_size]]

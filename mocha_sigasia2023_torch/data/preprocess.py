@@ -1,10 +1,10 @@
 """BVH clip arrays -> per-frame motion features (PyTorch).
 
-Counterpart of mocha_sigasia2023_tpu/data/preprocess.py:41-273
-(``featurize_clip`` without mirroring, which the serving path does not
-use):
+Counterpart of mocha_sigasia2023_tpu/data/preprocess.py:41-280:
 
   1. Euler degrees -> unrolled quaternions; cm -> m.
+  1b. Optional mirroring (FK -> reflect x -> conjugate rotations -> IK), as
+     the dataset build uses it.
   2. Root-bone synthesis: ground-projected Spine2 position (Savitzky-Golay
      window 15, order 3) + heading from the shoulder/hip "across" vector
      (window 31), prepended as bone 0 (24 joints -> 25 bones).
@@ -103,6 +103,34 @@ def central_angular_velocity(rotations, fps: float = 60.0):
     return torch.cat([first[:, None], inner, last[:, None]], dim=1)
 
 
+def mirror_map(names: Sequence[str]) -> np.ndarray:
+    """Left<->Right joint permutation from the joint names."""
+    idx = []
+    for n in names:
+        if n.startswith("Right"):
+            idx.append(names.index("Left" + n[5:]))
+        elif n.startswith("Left"):
+            idx.append(names.index("Right" + n[4:]))
+        else:
+            idx.append(names.index(n))
+    return np.asarray(idx, dtype=np.int32)
+
+
+def animation_mirror(lrot, lpos, names, parents):
+    """Mirror local rotations and positions (..., J, .) across the x plane:
+    FK, reflect the world positions, conjugate the world rotation matrices
+    with a sign mask and swap Left/Right joints, then IK back to locals."""
+    jm = quat.index(mirror_map(list(names)).tolist(), lrot.device)
+    mirror_pos = quat.const([-1.0, 1.0, 1.0], lpos)
+    mirror_rot = torch.tensor([[-1.0, -1.0, 1.0], [1.0, 1.0, -1.0],
+                               [1.0, 1.0, -1.0]], dtype=lrot.dtype,
+                              device=lrot.device)
+    grot, gpos = quat.fk(lrot, lpos, parents)
+    gpos_m = mirror_pos * gpos[..., jm, :]
+    grot_m = quat.from_xform(mirror_rot * quat.to_xform(grot[..., jm, :]))
+    return quat.ik(grot_m, gpos_m, parents)
+
+
 ROOT_POSITION_JOINT = "Spine2"
 ACROSS_JOINTS = ("LeftShoulder", "RightShoulder", "LeftUpLeg", "RightUpLeg")
 CONTACT_JOINTS = ("LeftToeBase", "RightToeBase")
@@ -112,12 +140,14 @@ ARRAY_KEYS = ("positions", "velocities", "rotations", "angular_velocities",
 
 def featurize_clip(rotations_deg: torch.Tensor, positions_cm: torch.Tensor,
                    order: str, names: Sequence[str], parents: Sequence[int],
-                   *, contact_velocity_threshold: float = 0.5,
+                   *, mirror: bool = False,
+                   contact_velocity_threshold: float = 0.5,
                    fps: float = 60.0) -> Dict:
     """BVH arrays -> per-frame features over the (J+1)-bone rig with a
     synthesized root: dict(positions, velocities, rotations,
     angular_velocities, contacts) plus ``bone_parents``/``bone_names``.
-    Inputs (T, J, 3) or (S, T, J, 3); outputs keep that leading shape."""
+    Inputs (T, J, 3) or (S, T, J, 3); outputs keep that leading shape.
+    ``mirror`` mirrors the raw local pose before the root is synthesized."""
     names = list(names)
     parents = np.asarray(parents)
     single = rotations_deg.dim() == 3
@@ -127,6 +157,11 @@ def featurize_clip(rotations_deg: torch.Tensor, positions_cm: torch.Tensor,
     rotations = quat.unroll(
         quat.from_euler(torch.deg2rad(rotations_deg), order=order), dim=1)
     positions = positions_cm * 0.01
+
+    if mirror:
+        rotations, positions = animation_mirror(rotations, positions, names,
+                                                parents)
+        rotations = quat.unroll(rotations, dim=1)
 
     _, gpos = quat.fk(rotations, positions, parents)
 

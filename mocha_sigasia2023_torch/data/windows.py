@@ -1,7 +1,8 @@
 """Clip windowing as index matrices + one gather.
 
 Counterpart of mocha_sigasia2023_tpu/data/windows.py:18-121 (the index
-builders are NumPy, the gathers torch).
+builders and the whole-clip reflect padding are NumPy, the gathers
+torch).
 """
 
 from __future__ import annotations
@@ -50,6 +51,47 @@ def gather_windows(x: torch.Tensor, idx, pad_mask=None) -> torch.Tensor:
         keep = torch.as_tensor(~np.asarray(pad_mask), device=x.device)
         out = out * keep.to(out.dtype).reshape(
             keep.shape + (1,) * (out.dim() - 2))
+    return out
+
+
+def reflect_pad_to(x: np.ndarray, target: int) -> np.ndarray:
+    """Whole-clip reflect padding: symmetric ping-pong reflection extending
+    the clip (axis 0) to ``target`` frames, the odd frame of a deficit on
+    the left."""
+    T = len(x)
+    if T >= target:
+        return x
+
+    def reflection(src, tlen):
+        seg = np.flip(src, axis=0)
+        out = seg.copy()
+        while len(out) < tlen:
+            seg = np.flip(seg, axis=0)
+            out = np.concatenate([out, seg], axis=0)
+        return out[:tlen]
+
+    deficit = target - T
+    left_len = deficit // 2 + deficit % 2
+    right_len = deficit // 2
+    left = np.flip(reflection(np.flip(x, axis=0), left_len), axis=0)
+    right = reflection(x, right_len)
+    return np.concatenate([left, x, right], axis=0)
+
+
+def whole_clip_padded(features: Dict, min_multiple: int = 4,
+                      min_len: int = 12) -> Dict:
+    """Reflect-pad a featurized clip's tensors to the next multiple of
+    ``min_multiple`` plus ``min_multiple`` frames (at least ``min_len``),
+    as one gather of reflected frame indices."""
+    T = int(features["positions"].shape[0])
+    target = max((T // min_multiple) * min_multiple + min_multiple, min_len)
+    idx = torch.as_tensor(reflect_pad_to(np.arange(T), target).copy(),
+                          device=features["positions"].device)
+    out = {k: features[k][idx] for k in ("positions", "velocities",
+                                          "rotations", "angular_velocities",
+                                          "contacts")}
+    for k in ("bone_parents", "bone_names"):
+        out[k] = features[k]
     return out
 
 

@@ -1,3 +1,3 @@
-"""BVH file I/O."""
+"""BVH and database.bin file I/O."""
 
-from . import bvh
+from . import bvh, database

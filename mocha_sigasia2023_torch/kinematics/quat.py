@@ -78,6 +78,15 @@ def _xform_terms(q):
     return xx, yy, zz, xy, yz, xz, wx, wy, wz
 
 
+def to_xform(q):
+    """Quaternion -> 3x3 rotation matrix (rows on axis -2)."""
+    xx, yy, zz, xy, yz, xz, wx, wy, wz = _xform_terms(q)
+    r0 = torch.cat([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1)
+    r1 = torch.cat([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1)
+    r2 = torch.cat([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1)
+    return torch.stack([r0, r1, r2], dim=-2)
+
+
 def to_xform_xy(q):
     """Quaternion -> first two rotation-matrix columns, shape (..., 3, 2)."""
     xx, yy, zz, xy, yz, xz, wx, wy, wz = _xform_terms(q)

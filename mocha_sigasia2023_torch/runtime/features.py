@@ -1,11 +1,15 @@
-"""Clip -> per-window encoder features for the streaming runtime.
+"""Clip -> per-window encoder features, and the dataset feature exports.
 
-Counterpart of mocha_sigasia2023_tpu/runtime/features.py:126-292, :408,
-:437, :488 and :571.  Raw clip arrays are featurized (one batched pass over all
-clips), world FK runs once per frame, stride-1 windows are gathered from
-those per-frame arrays in chunks of ``chunk`` windows (128 by default),
-each chunk is encoded, and only the window-last rows the stream step reads
-are derived.
+Counterpart of mocha_sigasia2023_tpu/runtime/features.py.  The streaming
+runtime's path (:126-292, :408, :437, :488): raw clip arrays are featurized
+(one batched pass over all clips), world FK runs once per frame, stride-1
+windows are gathered from those per-frame arrays in chunks of ``chunk``
+windows (128 by default), each chunk is encoded, and only the window-last
+rows the stream step reads are derived.  The host path and the dataset
+exports (:40-118, :522-631): ``encode_windows`` over raw window features in
+batches of 256, ``clip_stream_features``, and the database passes behind
+``cnt_norm.npz`` (``encode_database``, ``compute_cnt_norm``) and the
+per-character feature files (``collect_character_features``).
 """
 
 from __future__ import annotations
@@ -16,12 +20,81 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from ..data.dataset import pin_last, window_vel
+from ..data.dataset import (compute_window_features, pin_last, window_vel,
+                            window_xy_features)
 from ..data.preprocess import ARRAY_KEYS, featurize_clip
-from ..data.windows import padded_window_indices
+from ..data.windows import (full_window_indices, gather_windows,
+                            padded_window_indices)
 from ..device import check_module_device, resolve_device
 from ..kinematics import quat
 from ..models import generator as gen_mod
+
+
+@torch.no_grad()
+def encode_windows(gen, X, norm: Dict[str, np.ndarray], batch: int = 256,
+                   device=None):
+    """Normalize raw window features X (N, T, J, 15) without the root
+    bone and run the embedding + encoder over them, ``batch`` windows at a
+    time on ``device``.  Returns (encoded, cnt), (N, tokens, dim) float32
+    tensors on the device."""
+    dev = resolve_device(device)
+    check_module_device(gen, dev, "generator")
+    X_mean = torch.as_tensor(norm["X_mean"], dtype=torch.float32, device=dev)
+    X_std = torch.as_tensor(norm["X_std"], dtype=torch.float32, device=dev)
+    enc_out, cnt_out = [], []
+    for i in range(0, len(X), batch):
+        xb = torch.as_tensor(np.asarray(X[i:i + batch]), dtype=torch.float32,
+                             device=dev)
+        x_in = (xb[:, :, 1:] - X_mean[None, None, 1:]) / X_std[None, None, 1:]
+        encoded = gen_mod.encode(gen, x_in)
+        enc_out.append(encoded)
+        cnt_out.append(gen_mod.content_feature(encoded))
+    return torch.cat(enc_out), torch.cat(cnt_out)
+
+
+@torch.no_grad()
+def clip_stream_features(bvh_data: Dict, gen, norm: Dict[str, np.ndarray], *,
+                         window: int = 60, mirror: bool = False,
+                         device=None) -> Dict:
+    """Streaming featurization of one clip by the full window features:
+    stride-1 windows, X / Y / root recomputed per window, batched encode.
+    Returns host arrays per window: encoded/cnt (N, tokens, dim), the
+    window-last pose rows (N, J, .), root velocities and window-mean hip
+    speeds, with ``bone_parents``/``bone_names``."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    feats = featurize_clip(t(bvh_data["rotations"]), t(bvh_data["positions"]),
+                           bvh_data["order"], bvh_data["names"],
+                           bvh_data["parents"], mirror=mirror,
+                           contact_velocity_threshold=0.5)
+    parents = feats["bone_parents"]
+    T = int(feats["positions"].shape[0])
+    idx, pad = padded_window_indices(T, window, 1)
+    X, Y, root = window_xy_features(
+        gather_windows(feats["rotations"], idx),
+        gather_windows(feats["positions"], idx),
+        gather_windows(feats["velocities"], idx, pad),
+        gather_windows(feats["angular_velocities"], idx, pad), parents)
+    contacts = gather_windows(feats["contacts"], idx)
+    encoded, cnt = encode_windows(gen, X, norm, device=dev)
+    Yvel2 = Y[..., 9:12]
+    host = {
+        "encoded": encoded, "cnt": cnt,
+        "pos_last": Y[:, -1, :, :3],
+        "rot_last": quat.from_xform_xy(
+            Y[:, -1, :, 3:9].reshape(len(Y), -1, 3, 2)),
+        "vel_last": Yvel2[:, -1], "ang_last": Y[:, -1, :, 12:15],
+        "rvel_last": root[:, -1, :3], "rang_last": root[:, -1, 3:],
+        "contact_last": contacts[:, -1],
+        "hips_speed_mean": torch.mean(torch.linalg.norm(Yvel2[:, :, 1],
+                                                        dim=-1), dim=1)}
+    out = {k: v.cpu().numpy() for k, v in host.items()}
+    out["bone_parents"] = parents
+    out["bone_names"] = feats["bone_names"]
+    return out
 
 
 def _tail_vel(pos4, fps=60.0):
@@ -248,7 +321,92 @@ def clip_stream_features_device(bvh_data: Dict, gen, norm, *,
 
 def compute_cnt_norm(encoded: torch.Tensor, cnt: torch.Tensor):
     """Context-feature statistics: mean/std over windows per
-    (token, channel), on the inputs' device."""
+    (token, channel), on the inputs' device (``cnt_norm.npz`` keeps
+    ``mean`` and ``std``)."""
     return {"mean": cnt.mean(dim=0), "std": cnt.std(dim=0, correction=0),
             "encoded_mean": encoded.mean(dim=0),
             "encoded_std": encoded.std(dim=0, correction=0)}
+
+
+def database_window_features(db: Dict, *, window: int = 60, step: int = 20,
+                             clip_filter=None):
+    """Full windows of ``window`` frames every ``step`` frames within each
+    range of a loaded database, with their labels: (row indices (W,
+    window), style labels, action labels).  ``clip_filter(style, action)
+    -> bool`` restricts the ranges."""
+    starts, stops = db["range_starts"], db["range_stops"]
+    idx_all, styles, actions = [], [], []
+    for i in range(len(starts)):
+        if clip_filter is not None and not clip_filter(
+                int(db["style_labels"][i]), int(db["action_labels"][i])):
+            continue
+        idx = full_window_indices(int(stops[i] - starts[i]), window, step) \
+            + int(starts[i])
+        idx_all.append(idx)
+        styles += [int(db["style_labels"][i])] * len(idx)
+        actions += [int(db["action_labels"][i])] * len(idx)
+    if not idx_all:
+        raise ValueError("clip_filter selected no clips")
+    return (np.concatenate(idx_all), np.asarray(styles, np.int32),
+            np.asarray(actions, np.int32))
+
+
+def _window_X(db: Dict, idx, device):
+    """X features of the database windows at row indices ``idx``."""
+    X, _, _ = compute_window_features(
+        db["bone_rotations"][idx], db["bone_positions"][idx],
+        db["bone_velocities"][idx], db["bone_angular_velocities"][idx],
+        db["bone_parents"], device=device)
+    return X
+
+
+def encode_database(db: Dict, gen, norm: Dict[str, np.ndarray], *,
+                    window: int = 60, step: int = 20, clip_filter=None,
+                    batch: int = 256, device=None):
+    """Encode database windows -> (encoded, cnt, styles, actions): encoded
+    and cnt (W, tokens, dim) tensors on the device, the labels host
+    arrays.  At step 20 this is the dataset pass behind ``cnt_norm.npz``."""
+    idx, styles, actions = database_window_features(
+        db, window=window, step=step, clip_filter=clip_filter)
+    encoded, cnt = encode_windows(gen, _window_X(db, idx, device), norm,
+                                  batch=batch, device=device)
+    return encoded, cnt, styles, actions
+
+
+def collect_character_features(db: Dict, gen, norm: Dict[str, np.ndarray],
+                               *, style_labels: Sequence[int],
+                               action_labels: Sequence[int],
+                               window: int = 60, device=None) -> Dict:
+    """Per-character sliding-window feature export: encoded/cnt at window
+    step 1 over the ranges with one of ``style_labels`` and one of
+    ``action_labels``, with each range's start and stop in the export and
+    every window's action label, as host arrays.
+
+    A range of T frames gives the T - window windows [j - window, j) for j
+    in range(window, T), one fewer than step-1 full windows would (the
+    reference export's offset, kept exactly)."""
+    starts, stops = db["range_starts"], db["range_stops"]
+    styles, actions_sel = set(style_labels), set(action_labels)
+    sel_idx, actions = [], []
+    out_starts, out_stops = [], []
+    for i in range(len(starts)):
+        if (int(db["style_labels"][i]) not in styles
+                or int(db["action_labels"][i]) not in actions_sel):
+            continue
+        T = int(stops[i] - starts[i])
+        if T <= window:
+            continue
+        rows = (np.arange(window, T)[:, None] - window
+                + np.arange(window)[None, :] + int(starts[i]))
+        sel_idx.append(rows.astype(np.int32))
+        actions += [int(db["action_labels"][i])] * len(rows)
+        off = out_stops[-1] if out_stops else 0
+        out_starts.append(off)
+        out_stops.append(off + (T - window))
+    idx = np.concatenate(sel_idx)
+    encoded, cnt = encode_windows(gen, _window_X(db, idx, device), norm,
+                                  device=device)
+    return {"encoded": encoded.cpu().numpy(), "cnt": cnt.cpu().numpy(),
+            "range_starts": np.asarray(out_starts, np.int32),
+            "range_stops": np.asarray(out_stops, np.int32),
+            "action_label": np.asarray(actions, np.int32)}

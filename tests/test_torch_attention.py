@@ -88,40 +88,59 @@ def test_strided_head_view_matches_contiguous():
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("case", ["dtype", "head_dim", "keys", "mismatch",
-                                  "stride", "rank", "misaligned_start",
-                                  "misaligned_row_stride"])
+@pytest.mark.parametrize("case", ["dtype", "mismatch", "stride", "rank",
+                                  "empty"])
 def test_kernel_shape_checks_raise(case):
-    """What the CUDA kernel does not take is refused before any launch."""
+    """What no CUDA kernel takes is refused before any launch."""
     q = torch.zeros(1, 2, 90, 64)
     k = torch.zeros(1, 2, 90, 64)
     v = torch.zeros(1, 2, 90, 64)
-    if case == "misaligned_start":   # 4 bytes past a 16-byte boundary
-        q = torch.zeros(1 * 2 * 90 * 64 + 1)[1:].view(1, 2, 90, 64)
-    elif case == "misaligned_row_stride":   # rows 65 floats apart
-        q = torch.zeros(1, 2, 90, 65)[..., :64]
-    elif case == "dtype":
+    if case == "dtype":
         q = q.double()
-    elif case == "head_dim":
-        q, k, v = (torch.zeros(1, 2, 90, 48) for _ in range(3))
-    elif case == "keys":
-        k = v = torch.zeros(1, 2, 200, 64)
     elif case == "mismatch":
         k = torch.zeros(1, 2, 90, 128)
     elif case == "stride":
         q = torch.zeros(1, 2, 64, 90).transpose(2, 3)
     elif case == "rank":
         q = torch.zeros(2, 90, 64)
+    elif case == "empty":
+        k = v = torch.zeros(1, 2, 0, 64)
     with pytest.raises((TypeError, ValueError)):
         tattn._check(q, k, v)
 
 
-def test_kernel_shapes_of_the_main_path_pass_checks():
-    for shape, m in (((128, 4, 90, 128), 90), ((64, 4, 90, 256), 90),
-                     ((64, 4, 90, 256), 45)):
-        q = torch.empty(shape)
-        kv = torch.empty(shape[:2] + (m, shape[3]))
-        tattn._check(q, kv, kv)
+@pytest.mark.parametrize("case,route", [
+    ("main", "tuned"), ("keys_128", "tuned"), ("one_key", "tuned"),
+    ("head_dim", "general"), ("keys", "general"),
+    ("misaligned_start", "general"), ("misaligned_row_stride", "general"),
+    ("bf16_misaligned_row_stride", "general"), ("bf16_main", "tuned")])
+def test_route(case, route):
+    """Shapes and layout alone pick the kernel: the tuned kernels take
+    1 <= M <= 128 keys, d a multiple of 64 and views TMA can copy (16-byte
+    starts and strides); the general kernel takes the rest, which the
+    tuned kernels once refused."""
+    q = torch.zeros(1, 2, 90, 64)
+    k = torch.zeros(1, 2, 90, 64)
+    v = torch.zeros(1, 2, 90, 64)
+    if case == "keys_128":
+        k = v = torch.zeros(1, 2, 128, 64)
+    elif case == "one_key":
+        k = v = torch.zeros(1, 2, 1, 64)
+    elif case == "head_dim":
+        q, k, v = (torch.zeros(1, 2, 90, 48) for _ in range(3))
+    elif case == "keys":
+        k = v = torch.zeros(1, 2, 200, 64)
+    elif case == "misaligned_start":   # 4 bytes past a 16-byte boundary
+        q = torch.zeros(1 * 2 * 90 * 64 + 1)[1:].view(1, 2, 90, 64)
+    elif case == "misaligned_row_stride":   # rows 65 floats apart
+        q = torch.zeros(1, 2, 90, 65)[..., :64]
+    elif case == "bf16_misaligned_row_stride":   # rows 130 bytes apart
+        q, k, v = (torch.zeros(1, 2, 90, 65, dtype=torch.bfloat16)[..., :64]
+                   for _ in range(3))
+    elif case == "bf16_main":
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    tattn._check(q, k, v)
+    assert tattn._route(q, k, v) == route
 
 
 def test_unit_dims_take_any_stride():
@@ -129,6 +148,7 @@ def test_unit_dims_take_any_stride():
     q, k, v = (torch.zeros(256).as_strided((1, 1, 1, 64), (7, 5, 3, 1))
                for _ in range(3))
     tattn._check(q, k, v)
+    assert tattn._route(q, k, v) == "tuned"
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,24 @@
 """The CUDA build's cache key: a library is named by the hash of its source,
 every local header the source includes, and the compiler flags, so an
-edited header rebuilds instead of loading a stale library.  Nothing here
-needs nvcc."""
+edited header rebuilds instead of loading a stale library.  Also
+chip_smoke.py's build list and the launch counts its ``kernels (general)``
+and ``dataset`` phases expect, computed from the config and checked
+against the launches those phases make when rehearsed on the CPU at small
+widths.  Nothing here needs nvcc."""
 
 import importlib.util
 import os
 import re
+import sys
 
 import pytest
+import torch
 
-from mocha_sigasia2023_torch.ops import build
+from mocha_sigasia2023_torch.models import layers
+from mocha_sigasia2023_torch.models.generator import GeneratorConfig
+from mocha_sigasia2023_torch.ops import attention, build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _write(path, text):
@@ -55,6 +64,20 @@ def test_attention_source_hashes_its_header(source):
     files = build.local_files(source)
     assert [os.path.basename(f) for f in files] == [source, "ptx.cuh",
                                                     "tma.cuh"]
+
+
+def test_general_source_stands_alone():
+    """The general kernel includes no local header and has one C entry per
+    dtype, with the tuned kernels' argument list."""
+    path = os.path.join(build.CSRC_DIR, attention.SOURCE_GENERAL)
+    assert build.local_files(attention.SOURCE_GENERAL) == [path]
+    with open(path) as f:
+        text = f.read()
+    for _, entry, counter in attention.GENERAL.values():
+        assert f"MOCHA_GENERAL_ENTRY({entry}," in text
+        assert counter == "launches_general"
+    # shared memory is sized by the tiles, never by N, M or d
+    assert "extern __shared__" not in text and "__shared__ Smem sm;" in text
 
 
 @pytest.mark.parametrize("source", ["attention.cu", "attention_bf16.cu"])
@@ -147,3 +170,114 @@ def test_ablation_patches_apply_to_the_kernel():
             for fname, old, _ in patches:
                 with open(os.path.join(build.CSRC_DIR, fname)) as f:
                     assert old in f.read(), (variant, fname, old)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's build list and expected launch counts
+# ---------------------------------------------------------------------------
+
+SMALL = dict(encoder_dim=32, encoder_heads=2, encoder_dim_head=16,
+             encoder_mlp_dim=64, encoder_depth=1, decoder_dim=32,
+             decoder_heads=2, decoder_dim_head=16, decoder_mlp_dim=64,
+             decoder_depth=1)
+CVAE_SMALL = dict(latent_dim=32, depth=1, nheads=2, feedforward_dim=64)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    return chip_smoke
+
+
+def test_build_phase_lists_all_three_sources(smoke, monkeypatch):
+    assert smoke.build_sources() == ["attention.cu", "attention_bf16.cu",
+                                     "attention_general.cu"]
+    built, loaded = [], []
+    monkeypatch.setattr(smoke.build, "build_all",
+                        lambda sources: built.append(list(sources)))
+    monkeypatch.setattr(smoke.build, "BUILD_INFO", {
+        s: {"seconds": 0.0, "log": "", "path": s}
+        for s in smoke.build_sources()})
+    monkeypatch.setattr(smoke.attention, "load_library",
+                        lambda dtype, route: loaded.append((route, dtype)))
+    smoke.build_phase()
+    assert built == [smoke.build_sources()]
+    assert sorted(loaded, key=str) == sorted(
+        [(r, d) for r in ("tuned", "general")
+         for d in (torch.float32, torch.bfloat16)], key=str)
+
+
+def test_expected_counts_of_the_shipped_and_wide_configs(smoke):
+    """The numbers the dataset phase holds the card to, from the shipped
+    config: 60 clips of 1,200 frames, mirrored."""
+    exp = smoke.dataset_expected(GeneratorConfig())
+    assert exp == {"frames": 144_000, "ranges": 120,
+                   "cnt_norm_windows": 6_960, "cnt_norm_launches": 56,
+                   "character_ranges": 4, "character_windows": 4_560,
+                   "character_launches": 36}
+    names = smoke.dataset_names()
+    assert len(names) == len(set(names)) == 60
+    assert names[:2] == ["Walk_Neutral_Princess_000",
+                         "Run_Neutral_Princess_001"]
+    # the wide config: 4 encode chunks and 239 decodes, 2 layers each
+    wide = GeneratorConfig(**smoke.WIDE_CONFIG)
+    assert wide.num_tokens == 180
+    assert smoke.wide_expected_launches(wide) == 4 * 2 + 239 * 2
+
+
+@pytest.fixture
+def counted(smoke, monkeypatch):
+    """Launch checks that hold on the CPU, with every attention counted
+    on the counter of the kernel the card would launch."""
+    real = layers.fused_attention
+
+    def counting(q, k, v, *, scale):
+        counter = attention.ROUTES[attention._route(q, k, v)][q.dtype][2]
+        setattr(attention.fused_attention, counter,
+                getattr(attention.fused_attention, counter) + 1)
+        return real(q, k, v, scale=scale)
+
+    monkeypatch.setattr(layers, "fused_attention", counting)
+    monkeypatch.setattr(smoke, "check_launches",
+                        lambda dev, cond, msg: smoke.check(cond, msg))
+    smoke.reset_launches()
+    yield smoke
+    smoke.reset_launches()
+
+
+def test_wide_run_launches_what_its_layers_imply(counted):
+    """The wide run at small widths on the CPU: every attention of the
+    120-frame config goes to the general kernel, as many times as
+    wide_expected_launches says (the run checks it, in float32 and in
+    bf16)."""
+    cfg = GeneratorConfig(**{**SMALL, **counted.WIDE_CONFIG})
+    result, l32, l16 = counted.wide_run(
+        CVAE_SMALL,
+        torch.device("cpu"), streams=2, frames=20, db_windows=150, cfg=cfg)
+    assert l32 == l16 == counted.wide_expected_launches(cfg, 2, 20) == 40
+    assert result["launches"] == {"launches": 0, "launches_bf16": 0,
+                                  "launches_general": 40}
+
+
+def test_dataset_phase_launches_what_it_expects(counted, tmp_path):
+    """The dataset phase at small widths on the CPU (6 clips of 140
+    frames, heads of 64 so that the tuned kernel takes them): its exact
+    launch checks hold, with the counts dataset_expected gives for that
+    size."""
+    widths = dict(SMALL, encoder_dim_head=64, decoder_dim_head=64)
+    config = tmp_path / "config.yaml"
+    config.write_text("".join(
+        f"{section}:\n" + "".join(f"  {k}: {v}\n" for k, v in d.items())
+        for section, d in (("model", widths), ("cvae", CVAE_SMALL))))
+    cfg = GeneratorConfig(**widths)
+    root = tmp_path / "run"
+    root.mkdir()
+    result, launches = counted.dataset_phase(
+        cfg, torch.device("cpu"), str(root), clips=6, frames=140,
+        characterize_clips=2, subset=2, config=str(config))
+    exp = counted.dataset_expected(cfg, 6, 140)
+    assert (exp["cnt_norm_windows"], exp["character_windows"]) == (60, 320)
+    assert launches == exp["cnt_norm_launches"] + exp["character_launches"]
+    assert launches == 1 + 2
+    assert result["characterize_frames"] == 2 * 125

@@ -42,7 +42,8 @@ def test_import_loads_no_jax():
     mods = _port_modules()
     for m in ("runtime.stream", "runtime.export", "runtime.live",
               "runtime.matching", "cli.characterize", "io.bvh",
-              "utils.config"):
+              "utils.config", "cli.generate_database",
+              "cli.collect_features", "io.database"):
         assert "mocha_sigasia2023_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
@@ -75,8 +76,14 @@ def test_sources_import_no_jax():
     assert len(files) > 10
     for sub in ("cli", "io", "utils"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
-    for name in ("live.py", "matching.py"):
+    for name in ("live.py", "matching.py", "generate_database.py",
+                 "collect_features.py", "database.py"):
         assert any(f.endswith(os.sep + name) for f in files), name
+    # chip_smoke.py drives the general kernel and the dataset path too
+    smoke = open(files[0]).read()
+    for phase in ('"kernels (general)", general_phase',
+                  '"dataset", dataset_phase'):
+        assert phase in smoke, phase
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]
