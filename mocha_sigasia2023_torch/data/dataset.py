@@ -3,8 +3,11 @@
 Counterpart of mocha_sigasia2023_tpu/data/dataset.py:31-246: the
 finite-difference window velocities, the character-space X / parent-local
 Y window features (computed on the device in chunks of windows), the
-per-joint-channel norm stats, ``MotionDataset`` over a ``database.bin``
-(which writes ``norm.npz`` beside it) and ``iterate_batches``.  Feature
+per-joint-channel norm stats, the database's windows and labels
+(``database_window_features``, mocha_sigasia2023_tpu/runtime/
+features.py:522-544, shared by ``MotionDataset`` and the feature exports),
+``MotionDataset`` over a ``database.bin`` (which writes ``norm.npz``
+beside it) and ``iterate_batches``.  Feature
 layout per joint (15 channels): [pos(3), xform_xy(6), vel(3), ang(3)].
 """
 
@@ -78,6 +81,29 @@ def compute_window_features(Yrot, Ypos, Yvel, Yang, parents, batch=2048,
     return tuple(np.concatenate([o[k] for o in outs]) for k in range(3))
 
 
+def database_window_features(db: Dict, *, window: int = 60, step: int = 20,
+                             clip_filter=None):
+    """Full windows of ``window`` frames every ``step`` frames within each
+    range of a loaded database, with their labels: (row indices (W,
+    window), style labels, action labels).  ``clip_filter(style, action)
+    -> bool`` restricts the ranges."""
+    starts, stops = db["range_starts"], db["range_stops"]
+    idx_all, styles, actions = [], [], []
+    for i in range(len(starts)):
+        if clip_filter is not None and not clip_filter(
+                int(db["style_labels"][i]), int(db["action_labels"][i])):
+            continue
+        idx = full_window_indices(int(stops[i] - starts[i]), window, step) \
+            + int(starts[i])
+        idx_all.append(idx)
+        styles += [int(db["style_labels"][i])] * len(idx)
+        actions += [int(db["action_labels"][i])] * len(idx)
+    if not idx_all:
+        raise ValueError("clip_filter selected no clips")
+    return (np.concatenate(idx_all), np.asarray(styles, np.int32),
+            np.asarray(actions, np.int32))
+
+
 def compute_norm_stats(X, Y, root) -> Dict[str, np.ndarray]:
     """Per-joint-channel mean/std over (windows, frames) of host arrays;
     std floored with +1e-6."""
@@ -109,15 +135,8 @@ class MotionDataset:
         norm_path = os.path.join(data_dir, "norm.npz")
 
         parents = db["bone_parents"]
-        starts, stops = db["range_starts"], db["range_stops"]
-        idx_all, labels, actions = [], [], []
-        for i in range(len(starts)):
-            idx = full_window_indices(
-                int(stops[i] - starts[i]), window, window_step) + int(starts[i])
-            idx_all.append(idx)
-            labels += [int(db["style_labels"][i])] * len(idx)
-            actions += [int(db["action_labels"][i])] * len(idx)
-        idx_all = np.concatenate(idx_all, axis=0)
+        idx_all, labels, actions = database_window_features(
+            db, window=window, step=window_step)
 
         X, Y, root = compute_window_features(
             db["bone_rotations"][idx_all], db["bone_positions"][idx_all],
@@ -130,8 +149,8 @@ class MotionDataset:
         self.Y = Y.astype(np.float32)
         self.root = root.astype(np.float32)
         self.contact = db["contact_states"].astype(np.float32)[idx_all]
-        self.label = np.asarray(labels, dtype=np.int32)
-        self.action = np.asarray(actions, dtype=np.int32)
+        self.label = labels
+        self.action = actions
         self.parents = np.asarray(parents)
         self.norm = dict(np.load(norm_path))
 

@@ -5,11 +5,12 @@ runtime's path (:126-292, :408, :437, :488): raw clip arrays are featurized
 (one batched pass over all clips), world FK runs once per frame, stride-1
 windows are gathered from those per-frame arrays in chunks of ``chunk``
 windows (128 by default), each chunk is encoded, and only the window-last
-rows the stream step reads are derived.  The host path and the dataset
-exports (:40-118, :522-631): ``encode_windows`` over raw window features in
-batches of 256, ``clip_stream_features``, and the database passes behind
-``cnt_norm.npz`` (``encode_database``, ``compute_cnt_norm``) and the
-per-character feature files (``collect_character_features``).
+rows the stream step reads are derived.  The dataset exports (:40-67,
+:547-631): ``encode_windows`` over raw window features in batches of 256,
+and the database passes behind ``cnt_norm.npz`` (``encode_database``,
+``compute_cnt_norm``) and the per-character feature files
+(``collect_character_features``), over the windows
+``data.dataset.database_window_features`` selects.
 """
 
 from __future__ import annotations
@@ -20,11 +21,10 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from ..data.dataset import (compute_window_features, pin_last, window_vel,
-                            window_xy_features)
+from ..data.dataset import (compute_window_features,
+                            database_window_features, pin_last, window_vel)
 from ..data.preprocess import ARRAY_KEYS, featurize_clip
-from ..data.windows import (full_window_indices, gather_windows,
-                            padded_window_indices)
+from ..data.windows import padded_window_indices
 from ..device import check_module_device, resolve_device
 from ..kinematics import quat
 from ..models import generator as gen_mod
@@ -50,51 +50,6 @@ def encode_windows(gen, X, norm: Dict[str, np.ndarray], batch: int = 256,
         enc_out.append(encoded)
         cnt_out.append(gen_mod.content_feature(encoded))
     return torch.cat(enc_out), torch.cat(cnt_out)
-
-
-@torch.no_grad()
-def clip_stream_features(bvh_data: Dict, gen, norm: Dict[str, np.ndarray], *,
-                         window: int = 60, mirror: bool = False,
-                         device=None) -> Dict:
-    """Streaming featurization of one clip by the full window features:
-    stride-1 windows, X / Y / root recomputed per window, batched encode.
-    Returns host arrays per window: encoded/cnt (N, tokens, dim), the
-    window-last pose rows (N, J, .), root velocities and window-mean hip
-    speeds, with ``bone_parents``/``bone_names``."""
-    dev = resolve_device(device)
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-
-    feats = featurize_clip(t(bvh_data["rotations"]), t(bvh_data["positions"]),
-                           bvh_data["order"], bvh_data["names"],
-                           bvh_data["parents"], mirror=mirror,
-                           contact_velocity_threshold=0.5)
-    parents = feats["bone_parents"]
-    T = int(feats["positions"].shape[0])
-    idx, pad = padded_window_indices(T, window, 1)
-    X, Y, root = window_xy_features(
-        gather_windows(feats["rotations"], idx),
-        gather_windows(feats["positions"], idx),
-        gather_windows(feats["velocities"], idx, pad),
-        gather_windows(feats["angular_velocities"], idx, pad), parents)
-    contacts = gather_windows(feats["contacts"], idx)
-    encoded, cnt = encode_windows(gen, X, norm, device=dev)
-    Yvel2 = Y[..., 9:12]
-    host = {
-        "encoded": encoded, "cnt": cnt,
-        "pos_last": Y[:, -1, :, :3],
-        "rot_last": quat.from_xform_xy(
-            Y[:, -1, :, 3:9].reshape(len(Y), -1, 3, 2)),
-        "vel_last": Yvel2[:, -1], "ang_last": Y[:, -1, :, 12:15],
-        "rvel_last": root[:, -1, :3], "rang_last": root[:, -1, 3:],
-        "contact_last": contacts[:, -1],
-        "hips_speed_mean": torch.mean(torch.linalg.norm(Yvel2[:, :, 1],
-                                                        dim=-1), dim=1)}
-    out = {k: v.cpu().numpy() for k, v in host.items()}
-    out["bone_parents"] = parents
-    out["bone_names"] = feats["bone_names"]
-    return out
 
 
 def _tail_vel(pos4, fps=60.0):
@@ -326,29 +281,6 @@ def compute_cnt_norm(encoded: torch.Tensor, cnt: torch.Tensor):
     return {"mean": cnt.mean(dim=0), "std": cnt.std(dim=0, correction=0),
             "encoded_mean": encoded.mean(dim=0),
             "encoded_std": encoded.std(dim=0, correction=0)}
-
-
-def database_window_features(db: Dict, *, window: int = 60, step: int = 20,
-                             clip_filter=None):
-    """Full windows of ``window`` frames every ``step`` frames within each
-    range of a loaded database, with their labels: (row indices (W,
-    window), style labels, action labels).  ``clip_filter(style, action)
-    -> bool`` restricts the ranges."""
-    starts, stops = db["range_starts"], db["range_stops"]
-    idx_all, styles, actions = [], [], []
-    for i in range(len(starts)):
-        if clip_filter is not None and not clip_filter(
-                int(db["style_labels"][i]), int(db["action_labels"][i])):
-            continue
-        idx = full_window_indices(int(stops[i] - starts[i]), window, step) \
-            + int(starts[i])
-        idx_all.append(idx)
-        styles += [int(db["style_labels"][i])] * len(idx)
-        actions += [int(db["action_labels"][i])] * len(idx)
-    if not idx_all:
-        raise ValueError("clip_filter selected no clips")
-    return (np.concatenate(idx_all), np.asarray(styles, np.int32),
-            np.asarray(actions, np.int32))
 
 
 def _window_X(db: Dict, idx, device):

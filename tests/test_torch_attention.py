@@ -109,6 +109,24 @@ def test_kernel_shape_checks_raise(case):
         tattn._check(q, k, v)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_shapes_of_the_main_path_pass_checks(dtype):
+    """The main path's shapes, as models/layers.attention views them
+    ((B, N, H, d) projections transposed to (B, H, N, d)), reach the tuned
+    kernels in both dtypes: the encoder (d = 128), the decoder (d = 256)
+    and its M = 45 cross attention."""
+    for (b, h, n, d), m in (((128, 4, 90, 128), 90), ((64, 4, 90, 256), 90),
+                            ((64, 4, 90, 256), 45)):
+        def head_view(rows):
+            return torch.empty(b, rows, h * d, dtype=dtype).reshape(
+                b, rows, h, d).transpose(1, 2)
+
+        q, k, v = head_view(n), head_view(m), head_view(m)
+        assert not q.is_contiguous()
+        tattn._check(q, k, v)
+        assert tattn._route(q, k, v) == "tuned", ((b, h, n, d), m, dtype)
+
+
 @pytest.mark.parametrize("case,route", [
     ("main", "tuned"), ("keys_128", "tuned"), ("one_key", "tuned"),
     ("head_dim", "general"), ("keys", "general"),

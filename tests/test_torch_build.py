@@ -4,13 +4,15 @@ edited header rebuilds instead of loading a stale library.  Also
 chip_smoke.py's build list and the launch counts its ``kernels (general)``
 and ``dataset`` phases expect, computed from the config and checked
 against the launches those phases make when rehearsed on the CPU at small
-widths.  Nothing here needs nvcc."""
+widths, and the velocity bar of its dataset parity.  Nothing here needs
+nvcc."""
 
 import importlib.util
 import os
 import re
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -281,3 +283,39 @@ def test_dataset_phase_launches_what_it_expects(counted, tmp_path):
     assert launches == exp["cnt_norm_launches"] + exp["character_launches"]
     assert launches == 1 + 2
     assert result["characterize_frames"] == 2 * 125
+
+
+def test_velocity_bar_follows_the_positions_gap(smoke):
+    """chip_smoke's velocity parity: implied_velocity_gap is featurize's
+    central difference of the positions' gap, range by range, so two
+    blocks built by that difference pass with a residual near zero; a
+    velocity off by more than 2e-4 beyond what its positions imply
+    fails."""
+    from mocha_sigasia2023_torch.data.preprocess import central_velocity
+
+    rng = np.random.RandomState(5)
+    starts, stops = np.array([0, 50, 120]), np.array([50, 120, 200])
+    base = np.cumsum(0.02 * rng.randn(200, 3, 3), axis=0) + 20.0
+    sides = []
+    for shift in (0.0, 4e-6):
+        pos = (base + shift * rng.randn(*base.shape)).astype(np.float32)
+        vel = np.concatenate([central_velocity(
+            torch.as_tensor(pos[s:e])[None])[0].numpy()
+            for s, e in zip(starts, stops)])
+        sides.append({"bone_positions": pos, "bone_velocities": vel,
+                      "range_starts": starts, "range_stops": stops})
+    a, b = sides
+    implied = smoke.implied_velocity_gap(a["bone_positions"],
+                                         b["bone_positions"], starts, stops)
+    want = np.concatenate([central_velocity(torch.as_tensor(
+        (a["bone_positions"].astype(np.float64)
+         - b["bone_positions"])[s:e])[None])[0].numpy()
+        for s, e in zip(starts, stops)])
+    np.testing.assert_allclose(implied, want, atol=1e-12, rtol=0)
+    errs, ok = smoke.velocity_parity(a, b)
+    assert ok and errs["residual"] < 1e-5, errs
+    assert errs["tolerance"] == smoke.FEAT_ATOL + errs["implied_by_positions"]
+    a["bone_velocities"] = a["bone_velocities"].copy()
+    a["bone_velocities"][60, 1, 2] += 3e-4
+    errs, ok = smoke.velocity_parity(a, b)
+    assert not ok and errs["residual"] > smoke.FEAT_ATOL, errs

@@ -11,7 +11,9 @@ Mirroring is held to the JAX ``animation_mirror`` within 1e-5 and to the
 mirrored ``featurize_clip_jit`` within 2e-4; the reflect padding is exact.
 """
 
+import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -38,6 +40,7 @@ from mocha_sigasia2023_torch.kinematics import quat as tquat  # noqa: E402
 from mocha_sigasia2023_torch.utils import get_config  # noqa: E402
 
 torch.set_num_threads(2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FEAT_TOL = 2e-4
 MIRROR_TOL = 1e-5
 CLIP_NAMES = ("Walk_Neutral_Princess_001", "Run_Angry_Clown_002",
@@ -265,3 +268,42 @@ def test_whole_clip_padded_exact(T):
                                       err_msg=k)
     assert len(got["positions"]) == max(T // 4 * 4 + 4, 12)
     assert got["bone_names"] == feats["bone_names"]
+
+
+@pytest.mark.parametrize("mirror", [False, True])
+def test_featurize_long_clip_far_from_origin_matches_jax(mirror):
+    """A 20 s running clip, chip_smoke's dataset-phase clip 1 (root 30 m out
+    by its end): positions within 2e-4, and velocities within chip_smoke's
+    bar, 2e-4 plus the gap the positions' own gap implies through the
+    central difference, with what the positions do not explain within
+    2e-4."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    T = 1200
+    clip = make_mocha_bvh_data(T=T, seed=3001, walk_speed=152.0)
+    got = tpre.featurize_clip(
+        torch.as_tensor(clip["rotations"], dtype=torch.float32),
+        torch.as_tensor(clip["positions"], dtype=torch.float32),
+        clip["order"], clip["names"], clip["parents"], mirror=mirror,
+        contact_velocity_threshold=0.5)
+    want = jpre.featurize_clip_jit(clip, mirror=mirror,
+                                   contact_velocity_threshold=0.5)
+    g = {"bone_positions": got["positions"].numpy(),
+         "bone_velocities": got["velocities"].numpy()}
+    w = {"bone_positions": np.asarray(want["positions"]),
+         "bone_velocities": np.asarray(want["velocities"]),
+         "range_starts": np.array([0]), "range_stops": np.array([T])}
+    assert np.abs(w["bone_positions"][:, 0]).max() > 29.0
+    np.testing.assert_allclose(g["bone_positions"], w["bone_positions"],
+                               atol=FEAT_TOL, rtol=0)
+    errs, ok = chip_smoke.velocity_parity(g, w)
+    assert ok, errs
+    for k in ("rotations", "angular_velocities"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=FEAT_TOL, rtol=0, err_msg=k)
+    np.testing.assert_array_equal(got["contacts"].numpy(),
+                                  np.asarray(want["contacts"]))
+    print(f"mirror={mirror}: positions "
+          f"{np.abs(g['bone_positions'] - w['bone_positions']).max():.3e}, "
+          f"velocities {json.dumps(errs)}")

@@ -219,14 +219,14 @@ def test_encode_database_matches_jax(chain):
     np.testing.assert_allclose(cnt.numpy(), jcnt, atol=CNT_TOL, rtol=0)
     np.testing.assert_array_equal(styles, jstyles)
     np.testing.assert_array_equal(actions, jactions)
-    idx, s, a = tfeat.database_window_features(
+    idx, s, a = tds.database_window_features(
         db, clip_filter=lambda style, action: action == 6)
     jidx, js, ja = jfeat.database_window_features(
         db, clip_filter=lambda style, action: action == 6)
     for g, w in ((idx, jidx), (s, js), (a, ja)):
         np.testing.assert_array_equal(g, w)
     with pytest.raises(ValueError, match="no clips"):
-        tfeat.database_window_features(db, clip_filter=lambda s, a: False)
+        tds.database_window_features(db, clip_filter=lambda s, a: False)
     stats = tfeat.compute_cnt_norm(enc, cnt)
     jstats = jfeat.compute_cnt_norm(jenc, jcnt)
     for k in jstats:
@@ -256,23 +256,26 @@ def test_collect_character_features_matches_jax(chain):
 
 
 def test_clip_stream_features_host_path_matches_jax(chain):
+    """The port's one clip path (the device form, on the CPU here) against
+    the JAX package's host path, which recomputes X / Y / root per window:
+    the same rows in the same order."""
     clip = tbvh.load(str(chain["dir"] / "bvh" / f"{CLIPS[2][0]}.bvh"))
     norm = _load_npz(chain["tdir"] / "norm.npz")
-    got = tfeat.clip_stream_features(clip, chain["tg"], norm, mirror=True,
-                                     device="cpu")
+    got = tfeat.clip_stream_features_device(clip, chain["tg"], norm,
+                                            window=60, device="cpu")
     want = jfeat.clip_stream_features(clip, chain["params"], chain["jcfg"],
-                                      norm, mirror=True)
+                                      norm)
     assert set(got) == set(want)
     assert got["encoded"].shape == (140 - 15, 90, 32)
     for k, v in want.items():
         if k == "bone_names":
-            assert got[k] == v
+            assert list(got[k]) == list(v)
         elif k in ("bone_parents", "contact_last"):
-            np.testing.assert_array_equal(got[k], v, err_msg=k)
+            np.testing.assert_array_equal(np.asarray(got[k]), v, err_msg=k)
         else:
             tol = {"encoded": ENC_TOL, "cnt": CNT_TOL}.get(k, FEAT_TOL)
-            np.testing.assert_allclose(got[k], np.asarray(v), atol=tol,
-                                       rtol=0, err_msg=k)
+            np.testing.assert_allclose(np.asarray(got[k]), np.asarray(v),
+                                       atol=tol, rtol=0, err_msg=k)
 
 
 def test_cli_feature_files_agree(chain):
