@@ -26,14 +26,20 @@ Phases (any failure exits non-zero; each prints its wall time):
   3b. kernels (general): the general kernel (attention_general.cu) in both
      dtypes against its plain version at N = M = 180 with d = 32 and 96,
      M = 300 with N = 17 and d = 128, d = 50 with 200-byte rows, N = M =
-     d = 1, 2 * SMs + 1 heads and logits near +-40, each again on 10 more
-     launches, every launch on its counter; timed at the encoder chunk of
-     a 120-frame, 96-wide-head config (B*H = 512, N = M = 180, d = 96)
-     beside its bound and SDPA.  Then the wide run: a random-weight
-     generator of that config (decoder heads of 32) serves 4 streams x 120
-     frames through the runner on the card and on the CPU (positions
-     within 1e-3, identical picks), every attention launch on the general
-     kernel, as many as its layers imply; once more in bf16.
+     d = 1, d = 320 over M = 200 and d = 300 with its logits resident
+     (three column blocks), N = M = 1,000 (two passes), M at the plan's
+     switch between its paths and one key past it, q one element off
+     alignment, 2 * SMs + 1 heads, 2^20 + 3 heads (a CTA takes two items)
+     and logits near +-40, each again on 10 more launches, every launch
+     on its counter; timed beside its bound, plain version and SDPA at
+     the encoder chunk of a 120-frame, 96-wide-head config (B*H = 512,
+     N = M = 180, d = 96), its decoder (B*H = 256, d = 32) and a
+     240-frame encoder chunk (N = M = 360, d = 128).  Then the wide run:
+     a random-weight generator of that config (decoder heads of 32)
+     serves 4 streams x 120 frames through the runner on the card and on
+     the CPU (positions within 1e-3, identical picks), every attention
+     launch on the general kernel, as many as its layers imply; once more
+     in bf16.
   4. slice: the full-width model (random weights from a NumPy seed) serves
      64 synthetic clips x 240 frames against a 2048-window character
      database: featurize -> windows -> encode -> batched stream runner with
@@ -522,21 +528,40 @@ def kernel_phase(dev, dtype=torch.float32):
 # the general kernel: every shape outside the tuned envelope
 # ---------------------------------------------------------------------------
 
-# timed: the encoder chunk of a config with 120-frame windows (180 tokens)
-# and encoder heads of 96 (WIDE_CONFIG)
-GENERAL_SHAPE = ("wide encoder chunk", 128, 4, 180, 180, 96)
+# timed, each beside its bound, plain version and SDPA: the encoder chunk
+# of a config with 120-frame windows (180 tokens) and encoder heads of 96
+# (WIDE_CONFIG, the kernel line's shape), its decoder (heads of 32), and
+# the encoder chunk of a 240-frame config (360 tokens, heads of 128)
+GENERAL_SHAPES = [("wide encoder chunk", 128, 4, 180, 180, 96),
+                  ("wide decoder", 64, 4, 180, 180, 32),
+                  ("240-frame encoder chunk", 128, 4, 360, 360, 128)]
+GENERAL_SHAPE = GENERAL_SHAPES[0]
+# the card's L2: a call whose bytes fit is timed from L2 when repeated
+L2_BYTES = 50 * 2 ** 20
 # untimed, held to the plain version: (batch, heads, query rows, key rows,
 # head dim); more than 128 keys, head dims off the multiples of 64, one of
-# everything
+# everything, d = 320 over 200 keys (three column blocks of P v; logits
+# resident in bf16, two passes in fp32), 1,000 keys (the two-pass path)
 GENERAL_EDGE_SHAPES = [(2, 3, 180, 180, 32), (2, 3, 180, 180, 96),
-                       (2, 3, 17, 300, 128), (1, 1, 1, 1, 1)]
+                       (2, 3, 17, 300, 128), (1, 1, 1, 1, 1),
+                       (2, 3, 200, 200, 320), (1, 2, 1000, 1000, 96)]
 GENERAL_ROWS_D = 50   # contiguous (B, H, rows, 50): 200-byte fp32 rows
-DESIGN_GENERAL = ("two passes over 64-key tiles (row max and sum, then P = "
-                  "e / sum in v's dtype and P v); one CTA of 256 threads per "
-                  "(batch, head, 16 query rows, 64 output columns); q and k "
-                  "staged in 64-column chunks and v in 64 x 64 blocks "
-                  "through shared memory by plain loads; fp32 FMA on the "
-                  "CUDA cores; no TMA, element alignment only")
+# N and d of the cases at the plan's switch between its two paths
+GENERAL_SWITCH_N_D = (90, 96)
+# heads of the case whose grid (one CTA an item, at most 2^20) makes a CTA
+# take a second item
+GENERAL_MANY_HEADS = (1 << 20) + 3
+DESIGN_GENERAL = ("a CTA of up to 4 warps owns 64 query rows and all of d "
+                  "(16 rows a warp); q staged once (d <= 128) or beside "
+                  "each 128-column k chunk; k and v in 32-key tiles through "
+                  "two cp.async buffers (16-, 8- or 4-byte "
+                  "copies or plain loads, as each view's alignment allows); "
+                  "q k^T and P v on the tensor cores: 3xTF32 mma.sync."
+                  "m16n8k8 (fp32), mma.sync.m16n8k16 with ldmatrix (bf16); "
+                  "fp32 logits (base 2) computed once and kept in shared "
+                  "memory where general_plan says they fit in half an SM "
+                  "(max, sum and P = e / sum in v's dtype from there, P v "
+                  "over every column block), else two passes over the keys")
 
 
 def general_cases(rng, dev, dtype):
@@ -544,6 +569,27 @@ def general_cases(rng, dev, dtype):
     cases = [(f"N={n},M={m},d={d}", *head_views(rng, b, h, n, m, d, dev,
                                                 dtype))
              for b, h, n, m, d in GENERAL_EDGE_SHAPES]
+    # d = 300 with its logits resident: P v over three column blocks
+    m = attention.general_resident_keys(200, 300, dtype)
+    cases.append((f"N=200,M={m},d=300 (resident)",
+                  *head_views(rng, 2, 3, 200, m, 300, dev, dtype)))
+    n, d = GENERAL_SWITCH_N_D
+    switch = attention.general_resident_keys(n, d, dtype)
+    for m in (switch, switch + 1):
+        path = ("resident" if attention.general_plan(n, m, d, dtype).resident
+                else "two-pass")
+        cases.append((f"N={n},M={m},d={d} ({path})",
+                      *head_views(rng, 2, 3, n, m, d, dev, dtype)))
+    q, k, v = head_views(rng, 2, 3, 180, 180, 96, dev, dtype)
+    flat = torch.empty(q.numel() + 1, device=dev, dtype=dtype)[1:]
+    off = flat.view(2, 180, 3, 96).transpose(1, 2)   # one element off
+    off.copy_(q)
+    cases.append((f"q one element ({q.element_size()} bytes) off alignment",
+                  off, k, v))
+    q, k, v = (torch.as_tensor(rng.standard_normal(
+        (GENERAL_MANY_HEADS, 1, 1, 1)).astype(np.float32), device=dev).to(
+            dtype) for _ in range(3))
+    cases.append((f"{GENERAL_MANY_HEADS} heads, N=M=d=1", q, k, v))
     d = GENERAL_ROWS_D
     rows = [torch.as_tensor(rng.standard_normal((2, 3, r, d)).astype(
         np.float32), device=dev).to(dtype) for r in (90, 90, 90)]
@@ -561,7 +607,7 @@ def general_kernel_phase(dev, dtype=torch.float32):
     """The general kernel for ``dtype``: held to its plain version at the
     edge cases (each again on EDGE_REPEATS more launches), every launch on
     the general counter and none on the tuned ones; then timed at
-    GENERAL_SHAPE.  Returns (a row for the timed shape, the checks' max
+    GENERAL_SHAPES.  Returns (a row per timed shape, the checks' max
     abs)."""
     tag = "attention general" + ("" if dtype == torch.float32
                                  else f" {dtype}")
@@ -587,32 +633,48 @@ def general_kernel_phase(dev, dtype=torch.float32):
         f" within the dtype's tolerance, max abs {worst:.3e}; each held "
         f"again on {EDGE_REPEATS} more launches, all on the general kernel")
 
-    name, b, h, n, m, d = GENERAL_SHAPE
-    q, k, v = head_views(rng, b, h, n, m, d, dev, dtype)
-    scale = d ** -0.5
-    max_abs, max_rel = check_attention(name, q, k, v, scale)
-    ms, host_ms = time_ms(
-        lambda: attention.fused_attention(q, k, v, scale=scale))
-    plain_ms, _ = time_ms(
-        lambda: attention.attention_reference(q, k, v, scale))
-    lib_ms, _ = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, scale=scale))
-    bound_ms, bound_by = attention_bound_ms(b, h, n, m, d, dtype)
-    row = {"shape": name, "dtype": str(dtype).replace("torch.", ""),
-           "B": b, "H": h, "N": n, "M": m, "d": d,
-           "max_abs_err": max(max_abs, worst), "max_rel_err": max_rel,
-           "repeated_launches_checked": EDGE_REPEATS * len(cases),
-           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "roofline_share": bound_ms / ms, "host_ms": host_ms}
-    log(f"[kernel] {tag} {name} (B={b},H={h},N={n},M={m},d={d}): max abs "
-        f"{max_abs:.3e} max rel {max_rel:.3e} | kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}), roofline share {bound_ms / ms:.3f}; host "
-        f"{1e3 * host_ms:.1f} us a call")
+    rows = []
+    for name, b, h, n, m, d in GENERAL_SHAPES:
+        q, k, v = head_views(rng, b, h, n, m, d, dev, dtype)
+        check(attention._route(q, k, v) == "general",
+              f"{tag} {name}: routed to the tuned kernels")
+        scale = d ** -0.5
+        max_abs, max_rel = check_attention(name, q, k, v, scale)
+        ms, host_ms = time_ms(
+            lambda: attention.fused_attention(q, k, v, scale=scale))
+        plain_ms, _ = time_ms(
+            lambda: attention.attention_reference(q, k, v, scale))
+        lib_ms, _ = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, scale=scale))
+        bound_ms, bound_by = attention_bound_ms(b, h, n, m, d, dtype)
+        nbytes = q.element_size() * b * h * (2 * n + 2 * m) * d
+        plan = attention.general_plan(n, m, d, dtype)
+        row = {"shape": name, "dtype": str(dtype).replace("torch.", ""),
+               "B": b, "H": h, "N": n, "M": m, "d": d,
+               "max_abs_err": max(max_abs, worst), "max_rel_err": max_rel,
+               "repeated_launches_checked": EDGE_REPEATS * len(cases),
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "roofline_share": bound_ms / ms, "host_ms": host_ms,
+               "l2_resident": nbytes <= L2_BYTES,
+               "plan": {"resident": plan.resident, "rows": plan.rows,
+                        "smem": plan.smem}}
+        # a call that fits in L2 is timed from L2: a share over 1 there
+        # is the cache's, not a claim against the HBM bound
+        share = (f"{bound_ms / ms:.3f}" + (" (L2-resident: bytes fit the "
+                                           "50 MB L2)"
+                                           if row["l2_resident"] else ""))
+        log(f"[kernel] {tag} {name} (B={b},H={h},N={n},M={m},d={d}; "
+            f"{'resident' if plan.resident else 'two-pass'}, "
+            f"{plan.smem} B smem): max abs "
+            f"{max_abs:.3e} max rel {max_rel:.3e} | kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), roofline share {share}; host "
+            f"{1e3 * host_ms:.1f} us a call")
+        rows.append(row)
     torch.cuda.synchronize()
-    return [row], worst
+    return rows, worst
 
 
 def general_phase(dev):

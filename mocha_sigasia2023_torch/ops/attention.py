@@ -11,8 +11,10 @@ for (B, H, N, d) queries and (B, H, M, d) keys/values:
   ``csrc/attention.cu`` for float32 (products in 3xTF32 on the tensor
   cores) and ``csrc/attention_bf16.cu`` for bfloat16 (bf16 tensor-core
   products, P and the output rounded to bf16 as the TPU kernel rounds
-  them); outside it ``csrc/attention_general.cu`` in either dtype (fp32
-  FMA on the CUDA cores, any N, M, d and element strides);
+  them); outside it ``csrc/attention_general.cu`` in either dtype
+  (tensor-core products, logits computed once where they fit in shared
+  memory, asynchronous copies; any N, M, d and element strides), laid out
+  by :func:`general_plan`;
 * on a CPU tensor it runs :func:`attention_reference`, the plain form of
   the same arithmetic.
 
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import astuple, dataclass
 
 import torch
 
@@ -54,6 +57,115 @@ HEAD_DIM_MULTIPLE = 64
 # the kernels' TMA copies need 16-byte-aligned starts and strides
 ALIGN_BYTES = 16
 
+# the general kernel's tiles: keys a staged tile of k or v (four 8-key MMA
+# tiles), query rows a CTA at most (16 a warp), head-dim columns of q and
+# k staged at a time, output columns held in registers at a time
+GENERAL_KEYS = 32
+GENERAL_ROWS = 64
+GENERAL_CHUNK = 128
+GENERAL_COL_BLOCK = 128
+# an H100's dynamic shared memory a block may use, and an SM's (of which
+# each resident block also takes 1 KB)
+SMEM_LIMIT = 232_448
+SM_SMEM = 233_472
+# the general kernel keeps its logits resident only in a CTA of at most
+# this much shared memory: half an SM, so that two CTAs share one
+GENERAL_RESIDENT_SMEM = SM_SMEM // 2 - 1024
+
+
+@dataclass(frozen=True)
+class GeneralPlan:
+    """How ``csrc/attention_general.cu`` lays out one call, passed to its C
+    entry field by field (the order of ``astuple``).  Widths and strides
+    are in elements of the inputs' dtype, ``smem`` in bytes."""
+
+    rows: int          # query rows a CTA (a multiple of 16)
+    depth: int         # d rounded up to the MMA depth (8 fp32, 16 bf16)
+    chunk: int         # head-dim columns of a staged k (and q) chunk
+    chunks: int        # chunks over ``depth``; q stays resident if 1
+    col_block: int     # output columns a pass of P v holds in registers
+    col_blocks: int
+    q_stride: int      # row stride of the resident q tile (0 if chunked)
+    c_stride: int      # row stride of a staged q or k chunk
+    v_stride: int      # row stride of a staged v tile
+    buffer: int        # elements of each of the two staging buffers
+    keys: int          # M rounded up to GENERAL_KEYS
+    resident: int      # 1: the fp32 logits of the CTA's rows stay in
+    # shared memory (computed once); 0: two passes over the keys
+    smem: int
+
+
+def _smem_stride(cols: int, esize: int) -> int:
+    """A staged row's stride in elements: rows 16 bytes apart modulo 128
+    (fp32: the fragment loads g * stride + t hit 32 banks) or an odd
+    multiple of 16 bytes (bf16: ldmatrix's eight rows hit every bank)."""
+    nbytes = cols * esize
+    nbytes += (16 - nbytes) % 128 if esize == 4 else 16
+    return nbytes // esize
+
+
+def _buffer_parts(rows, chunks, c_stride, v_stride):
+    """Elements of a staged k chunk (after its q chunk when d takes more
+    than one) and of a staged v block."""
+    return ((rows if chunks > 1 else 0) + GENERAL_KEYS) * c_stride, \
+        GENERAL_KEYS * v_stride
+
+
+def general_plan(n: int, m: int, d: int, dtype) -> GeneralPlan:
+    """The general kernel's layout for (N, M, d) in ``dtype``.
+
+    A CTA owns min(64, N rounded up to 16) query rows and all of d.  The
+    head dim is padded with zeros to the MMA depth and staged in chunks of
+    up to 128 columns; with one chunk q is staged once and stays, with more
+    q is staged beside each k chunk.  k and v stream through two buffers
+    in tiles of 32 keys, v in column blocks of 32, 64, 96 or 128 columns
+    (zeros past d; one kernel instance each); on the two-pass path a
+    buffer holds a key tile's last k chunk and its v block together.
+
+    The path: the logits stay resident (fp32, computed once; the row max
+    and sum and P = e / sum in v's dtype then come from shared memory, and
+    P v runs over every column block without computing a logit again)
+    whenever q, two buffers and rows x (M rounded up to 32) fp32 logits
+    fit in GENERAL_RESIDENT_SMEM bytes, half an SM, so that two CTAs
+    share one (general_resident_keys gives that M); above it, two passes
+    (the max and sum, then P and P v, logits computed again for each
+    column block), which have more CTAs an SM to hide their latency.
+    Shared memory never exceeds SMEM_LIMIT, whatever N, M and d are."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    step = 8 if esize == 4 else 16
+    depth = -(-d // step) * step
+    chunks = -(-depth // GENERAL_CHUNK)
+    chunk = min(depth, GENERAL_CHUNK)
+    # column blocks of 32, 64, 96 or 128 columns, the instance's tiles
+    col_blocks = -(-depth // GENERAL_COL_BLOCK)
+    col_block = min(GENERAL_COL_BLOCK, -(-depth // 32) * 32)
+    rows = min(GENERAL_ROWS, -(-n // 16) * 16)
+    keys = -(-m // GENERAL_KEYS) * GENERAL_KEYS
+    q_stride = _smem_stride(depth, esize) if chunks == 1 else 0
+    c_stride = _smem_stride(chunk, esize)
+    v_stride = _smem_stride(col_block, esize)
+    k_part, v_part = _buffer_parts(rows, chunks, c_stride, v_stride)
+    logits = rows * keys * 4
+    resident = (rows * q_stride + 2 * max(k_part, v_part)) * esize \
+        + logits <= GENERAL_RESIDENT_SMEM
+    buffer = max(k_part, v_part) if resident else k_part + v_part
+    return GeneralPlan(rows, depth, chunk, chunks, col_block, col_blocks,
+                       q_stride, c_stride, v_stride, buffer, keys,
+                       int(resident),
+                       (rows * q_stride + 2 * buffer) * esize
+                       + logits * resident)
+
+
+def general_resident_keys(n: int, d: int, dtype) -> int:
+    """The largest M whose logits stay resident at (N, d) in ``dtype``:
+    one key more takes the two-pass path."""
+    p = general_plan(n, 1, d, dtype)
+    esize = torch.empty((), dtype=dtype).element_size()
+    staged = (p.rows * p.q_stride + 2 * max(_buffer_parts(
+        p.rows, p.chunks, p.c_stride, p.v_stride))) * esize
+    return (GENERAL_RESIDENT_SMEM - staged) // (p.rows * 4) \
+        // GENERAL_KEYS * GENERAL_KEYS
+
 
 def attention_reference(q, k, v, scale: float):
     """Plain PyTorch softmax(q k^T * scale) v.  Float32 inputs take the
@@ -76,8 +188,11 @@ def load_library(dtype=torch.float32, route="tuned"):
     "general") for ``dtype``; returns its C entry."""
     source, name, _ = ROUTES[route][dtype]
     fn = getattr(build.load(source), name)
+    # the general entries also take the plan, an int array
+    plan = [ctypes.POINTER(ctypes.c_int)] if route == "general" else []
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] + plan
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -151,10 +266,14 @@ def fused_attention(q, k, v, *, scale: float):
     strides = []
     for t in (q, k, v, out):
         strides += [t.stride(0), t.stride(1), t.stride(2)]
+    plan = []
+    if route == "general":
+        fields = astuple(general_plan(n, m, d, q.dtype))
+        plan = [(ctypes.c_int * len(fields))(*fields)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 *strides, b, h, n, m, d, float(scale), stream)
+                 *strides, b, h, n, m, d, float(scale), *plan, stream)
     if err != 0:
         raise RuntimeError(f"fused_attention: CUDA launch failed with error "
                            f"{err}")

@@ -1,6 +1,7 @@
 // Inline PTX for Hopper (sm_90a): mbarriers, TMA tensor copies between
-// global and shared memory, the TF32 tensor-core product with its 3xTF32
-// split, and the bf16 warpgroup products (wgmma).
+// global and shared memory, asynchronous copies (cp.async), ldmatrix, the
+// TF32 tensor-core product with its 3xTF32 split, the bf16 mma.sync
+// product, and the bf16 warpgroup products (wgmma).
 #pragma once
 
 #include <stdint.h>
@@ -118,6 +119,49 @@ __device__ __forceinline__ void prefetch_tensormap(const void* map) {
                :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+// ---- asynchronous copies (cp.async), completing by commit group ----
+
+// `Bytes` (4, 8 or 16) from global `src` to shared `dst`, both aligned to
+// `Bytes`; 16-byte copies bypass L1.
+template <int Bytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
+  if constexpr (Bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 :: "r"(dst), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;"
+                 :: "r"(dst), "l"(src), "n"(Bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Waits until at most N of this thread's commit groups are incomplete.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// ---- ldmatrix: four 8x8 b16 matrices, lanes 8i..8i+7 giving the 16-byte
+// row addresses of matrix i; r[i] holds matrix i's row lane / 4, elements
+// 2 (lane % 4) and 2 (lane % 4) + 1 (with .trans: of the transpose) ----
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // ---- shared stores ----
 
 __device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
@@ -178,6 +222,19 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
+}
+
+// d += a b for a 16x16 (row) by 16x8 (col) bf16 tile; the products are
+// exact in fp32 and summed in fp32.  Fragments (g = lane / 4,
+// t = lane % 4), two bf16 a word, the lower column in the low half:
+// a = A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..];
+// b = B[2t..][g], B[2t+8..][g]; d as in mma_tf32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- bf16 warpgroup products (wgmma) ----

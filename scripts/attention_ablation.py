@@ -1,11 +1,12 @@
 """What bounds the attention kernels: variants of them, timed side by side.
 
     python3 scripts/attention_ablation.py [--dtype float32|bfloat16|both]
+        [--kernel tuned|general|both]
 
 Copies ``mocha_sigasia2023_torch/ops/csrc`` into the git-ignored
 ``mocha_sigasia2023_torch/_build/ablation/``, applies one textual patch per
-variant, builds every variant of both kernels with ``nvcc`` at once, and
-times each at the main-path shapes on one GPU with ``chip_smoke.time_ms``
+variant, builds every variant of the chosen kernels with ``nvcc`` at once,
+and times each at the main-path shapes on one GPU with ``chip_smoke.time_ms``
 (device and host time a call), in the order v1..vn, vn..v1 twice (the
 median of the 4 timings).  Also checks each variant with logits near +-40
 against float64 and against the plain version.  The float32 kernel's
@@ -29,8 +30,19 @@ The bfloat16 kernel's (``PATCHES_BF16``):
                 its 16
   one_instance  q k^T at N = 128 keys for every M, not 64 / 96 / 128
 
-copies_only, products_only and no_stores give wrong outputs by design;
-only their times mean anything.  A patch that no longer applies to the
+The general kernel's (``PATCHES_GENERAL``, both dtypes, timed at
+``chip_smoke.GENERAL_SHAPES``, all on its resident path):
+
+  library       the kernel as committed
+  no_copies     nothing staged: shared memory holds what it holds
+  no_qk         no q k^T products (the logits are whatever the
+                accumulators start as)
+  no_softmax    the logits resident, but no exp, sum or division over them
+  no_pv         no P v products
+  no_store      the output never written
+
+copies_only, products_only, no_stores and every general variant but
+library give wrong outputs by design; only their times mean anything.  A patch that no longer applies to the
 source stops the script.  Prints one JSON line with every timing and
 error.
 """
@@ -161,11 +173,30 @@ PATCHES_BF16 = {
 }
 VARIANTS = {torch.float32: PATCHES, torch.bfloat16: PATCHES_BF16}
 
+# the general kernel's variants, built for both dtypes
+GENERAL_SOURCE = attention.SOURCE_GENERAL
+PATCHES_GENERAL = {
+    "library": [],
+    "no_copies": [(GENERAL_SOURCE,
+                   "  for (int r = r0; r < rows; r += row_step) {",
+                   "  for (int r = r0; r < 0; r += row_step) {")],
+    "no_qk": [(GENERAL_SOURCE, "        qk_tile(qw,",
+               "        if (p.N < 0) qk_tile(qw,")],
+    "no_softmax": [(GENERAL_SOURCE,
+                    "for (int j = 0; j < p.keys / 8; ++j) {",
+                    "for (int j = 0; j < 0; ++j) {")],
+    "no_pv": [(GENERAL_SOURCE, "pv_tile<NT>(pt, st,",
+               "if (p.N < 0) pv_tile<NT>(pt, st,")],
+    "no_store": [(GENERAL_SOURCE, "        store(out, col0);",
+                  "        if (p.N < 0) store(out, col0);")],
+}
 
-def start_builds(patches, out, dtypes):
+
+def start_builds(patches, out, dtypes, route="tuned"):
     """A patched copy of the sources for each variant in ``out``, and one
-    ``nvcc`` started for each (variant, kernel of ``dtypes``); returns
-    {(variant, dtype): (library, C entry, process)}."""
+    ``nvcc`` started for each (variant, ``route`` kernel of ``dtypes``, one
+    source for both dtypes of the general kernel); returns
+    {(variant, dtype): (library, C entry, process, route)}."""
     procs = {}
     for name, edits in patches.items():
         src = os.path.join(out, name)
@@ -180,13 +211,17 @@ def start_builds(patches, out, dtypes):
                                    f"{fname}: {old!r}")
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
+        started = {}
         for dtype in dtypes:
-            source, entry, _ = attention.KERNELS[dtype]
+            source, entry, _ = attention.ROUTES[route][dtype]
             lib = os.path.join(src, f"lib{source[:-3]}.so")
-            procs[name, dtype] = (lib, entry, subprocess.Popen(
-                [build.find_nvcc(), *build.NVCC_FLAGS, "-o", lib,
-                 os.path.join(src, source)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            if source not in started:
+                started[source] = subprocess.Popen(
+                    [build.find_nvcc(), *build.NVCC_FLAGS, "-o", lib,
+                     os.path.join(src, source)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+            procs[name, dtype] = (lib, entry, started[source], route)
     return procs
 
 
@@ -194,12 +229,13 @@ def finish_builds(procs):
     """Waits for ``start_builds``' compiles; returns {(variant, dtype): C
     entry}."""
     fns = {}
-    for key, (lib, entry, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"{key}: nvcc failed\n{log}")
+    for key, (lib, entry, proc, route) in procs.items():
+        if proc.returncode is None:
+            log = proc.communicate()[0]
+            if proc.returncode:
+                raise RuntimeError(f"{key}: nvcc failed\n{log}")
         fn = getattr(ctypes.CDLL(lib), entry)
-        library = attention.load_library(key[1])
+        library = attention.load_library(key[1], route)
         fn.argtypes, fn.restype = library.argtypes, library.restype
         fns[key] = fn
     return fns
@@ -284,10 +320,34 @@ def ablate(dtype, fns, dev):
     return result
 
 
+def ablate_general(dtype, fns, dev):
+    """Device ms of every general variant at the general kernel's timed
+    shapes, in the order v1..vn, vn..v1 twice (median of 4)."""
+    names = list(fns)
+    order = names + names[::-1] + names + names[::-1]
+    result = {}
+    for shape, b, h, n, m, d in cs.GENERAL_SHAPES:
+        q, k, v = cs.head_views(np.random.RandomState(0), b, h, n, m, d, dev,
+                                dtype)
+        times = {name: [] for name in names}
+        for name in order:
+            use(fns[name])
+            times[name].append(cs.time_ms(lambda: attention.fused_attention(
+                q, k, v, scale=d ** -0.5))[0])
+        result[shape] = {name: float(np.median(t))
+                         for name, t in times.items()}
+        cs.log(f"[ablation] general {dtype_name(dtype)} {shape}: "
+               + ", ".join(f"{name} {ms:.4f} ms"
+                           for name, ms in result[shape].items()))
+    return result
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--dtype", default="both",
                         choices=["float32", "bfloat16", "both"])
+    parser.add_argument("--kernel", default="both",
+                        choices=["tuned", "general", "both"])
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("attention_ablation: no CUDA device is available",
@@ -295,18 +355,29 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     dtypes = [t for t in VARIANTS if args.dtype in ("both", dtype_name(t))]
-    procs = {}
-    for dtype in dtypes:
+    tuned = args.kernel in ("tuned", "both")
+    general = args.kernel in ("general", "both")
+    procs, general_procs = {}, {}
+    for dtype in dtypes if tuned else ():
         procs.update(start_builds(VARIANTS[dtype],
                                   os.path.join(OUT, dtype_name(dtype)),
                                   (dtype,)))
-    fns = finish_builds(procs)
+    if general:
+        general_procs = start_builds(PATCHES_GENERAL,
+                                     os.path.join(OUT, "general"), dtypes,
+                                     "general")
+    fns, general_fns = finish_builds(procs), finish_builds(general_procs)
     dev = torch.device("cuda")
     result = {"card": cs.card_line()}
     for dtype in dtypes:
-        result[dtype_name(dtype)] = ablate(
-            dtype, {name: fn for (name, t), fn in fns.items() if t == dtype},
-            dev)
+        if tuned:
+            result[dtype_name(dtype)] = ablate(
+                dtype, {name: fn for (name, t), fn in fns.items()
+                        if t == dtype}, dev)
+        if general:
+            result["general " + dtype_name(dtype)] = ablate_general(
+                dtype, {name: fn for (name, t), fn in general_fns.items()
+                        if t == dtype}, dev)
     print(json.dumps(result), flush=True)
     return 0
 

@@ -12,11 +12,16 @@ launches the kernel ``--reps`` times at each main-path shape
 to the plain version at chip_smoke's tolerance.  It does so once shape by
 shape and once round robin over the shapes, with a short spinning kernel
 before each round, and times each shape with ``chip_smoke.time_ms``.  The
-variants:
+variants of the tuned kernels:
 
   committed   the sources as committed
   unfenced    ring stages released by a bare mbarrier arrive, without the
               proxy fence of ``ptx::mbar_release_stage``
+
+Then the general kernel (``attention_general.cu``, as committed: its ring
+of cp.async buffers could race) the same way in both dtypes, at its timed
+shapes (``chip_smoke.GENERAL_SHAPES``) and its check cases
+(``chip_smoke.general_cases``).
 
 A patch that no longer applies to the source stops the script.  Prints
 one JSON line with the count of launches outside the tolerance and the
@@ -41,7 +46,7 @@ import chip_smoke as cs  # noqa: E402
 from mocha_sigasia2023_torch.ops import attention, build  # noqa: E402
 
 sys.path.insert(0, os.path.join(REPO, "scripts"))
-from attention_ablation import build_variants  # noqa: E402
+from attention_ablation import build_variants, dtype_name  # noqa: E402
 
 OUT = os.path.join(build.BUILD_DIR, "stress")
 
@@ -63,17 +68,32 @@ def outside(q, k, v, scale, ref, limit):
     return int(bool(((out - ref).abs() > limit).any()))
 
 
-def stress(dtype, reps, dev):
+def tuned_cases(dtype, dev):
+    """(name, q, k, v) at the tuned kernels' main-path and edge shapes."""
+    return [(name, *cs.head_views(np.random.RandomState(i), b, h, n, m, d,
+                                  dev, dtype))
+            for i, (name, b, h, n, m, d) in enumerate(cs.ATTN_SHAPES
+                                                      + EDGE_SHAPES)]
+
+
+def general_cases(dtype, dev):
+    """(name, q, k, v) of the general kernel: its timed shapes and
+    chip_smoke's check cases."""
+    rng = np.random.RandomState(2)
+    return ([(name, *cs.head_views(rng, b, h, n, m, d, dev, dtype))
+             for name, b, h, n, m, d in cs.GENERAL_SHAPES]
+            + cs.general_cases(rng, dev, dtype))
+
+
+def stress(named, reps):
     """{shape: {"outside_alone", "outside_round_robin", "launches", "ms"}}
-    for the kernel that ``attention.load_library`` now returns."""
-    atol, rtol = cs.KERNEL_DTYPES[dtype][0]
+    for the (name, q, k, v) cases, through ``fused_attention``."""
     cases = []
-    for i, (name, b, h, n, m, d) in enumerate(cs.ATTN_SHAPES + EDGE_SHAPES):
-        q, k, v = cs.head_views(np.random.RandomState(i), b, h, n, m, d, dev,
-                                dtype)
-        ref = attention.attention_reference(q, k, v, d ** -0.5).float()
-        cases.append((name, q, k, v, d ** -0.5, ref,
-                      atol + rtol * ref.abs()))
+    for name, q, k, v in named:
+        atol, rtol = cs.KERNEL_DTYPES[q.dtype][0]
+        scale = q.shape[-1] ** -0.5
+        ref = attention.attention_reference(q, k, v, scale).float()
+        cases.append((name, q, k, v, scale, ref, atol + rtol * ref.abs()))
     result = {}
     for name, q, k, v, scale, ref, limit in cases:
         bad = sum(outside(q, k, v, scale, ref, limit) for _ in range(reps))
@@ -102,10 +122,16 @@ def main():
     dev = torch.device("cuda")
     fns = build_variants(PATCHES, OUT, tuple(attention.KERNELS))
     result = {"card": cs.card_line(), "reps": args.reps, "results": {}}
-    for (variant, dtype), fn in fns.items():
-        attention.load_library = (lambda f: lambda *_: f)(fn)
-        res = stress(dtype, args.reps, dev)
-        key = f"{str(dtype).replace('torch.', '')} {variant}"
+    load_library = attention.load_library
+    runs = [(f"{dtype_name(dtype)} {variant}",
+             (lambda f: lambda *_: f)(fn), tuned_cases(dtype, dev))
+            for (variant, dtype), fn in fns.items()]
+    runs += [(f"general {dtype_name(dtype)} committed", load_library,
+              general_cases(dtype, dev))
+             for dtype in (torch.float32, torch.bfloat16)]
+    for key, library, named in runs:
+        attention.load_library = library
+        res = stress(named, args.reps)
         result["results"][key] = res
         for name, r in res.items():
             cs.log(f"[stress] {key} {name}: {r['outside_alone']} + "

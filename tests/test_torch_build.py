@@ -7,6 +7,7 @@ against the launches those phases make when rehearsed on the CPU at small
 widths, and the velocity bar of its dataset parity.  Nothing here needs
 nvcc."""
 
+import dataclasses
 import importlib.util
 import os
 import re
@@ -69,17 +70,37 @@ def test_attention_source_hashes_its_header(source):
 
 
 def test_general_source_stands_alone():
-    """The general kernel includes no local header and has one C entry per
-    dtype, with the tuned kernels' argument list."""
-    path = os.path.join(build.CSRC_DIR, attention.SOURCE_GENERAL)
-    assert build.local_files(attention.SOURCE_GENERAL) == [path]
-    with open(path) as f:
+    """The general kernel has one C entry per dtype, with the tuned
+    kernels' arguments and the plan; the local header it includes
+    (ptx.cuh) is hashed into its library name; the ints it reads from the
+    plan are GeneralPlan's fields in order; both products run on the
+    tensor cores (3xTF32 and bf16 mma.sync) and the tiles are staged by
+    cp.async into dynamic shared memory.  No shape is refused: the entry
+    refuses only an empty dimension or a plan that does not cover the call
+    (tests/test_torch_general.py checks that every plan covers its call)."""
+    files = build.local_files(attention.SOURCE_GENERAL)
+    assert [os.path.basename(f) for f in files] == [
+        attention.SOURCE_GENERAL, "ptx.cuh"]
+    with open(files[0]) as f:
         text = f.read()
     for _, entry, counter in attention.GENERAL.values():
         assert f"MOCHA_GENERAL_ENTRY({entry}," in text
         assert counter == "launches_general"
-    # shared memory is sized by the tiles, never by N, M or d
-    assert "extern __shared__" not in text and "__shared__ Smem sm;" in text
+    read = re.findall(r"(\w+) = plan\[(\d+)\]", text)
+    names = [f.name for f in dataclasses.fields(attention.GeneralPlan)]
+    assert [name for name, _ in read] == names
+    assert [int(i) for _, i in read] == list(range(len(names)))
+    assert f"points at the {len(names)} ints" in text
+    for needle in ("ptx::mma_tf32x3(", "ptx::mma_bf16(", "ptx::cp_async<16>(",
+                   "ptx::cp_async_wait<0>(", "ptx::ldmatrix_x4_trans(",
+                   "extern __shared__"):
+        assert needle in text, needle
+    assert "__shared__ Smem" not in text
+    refusals = [line for line in text.splitlines()
+                if "return (int)cudaErrorInvalidValue;" in line]
+    assert len(refusals) == 4   # empty dims; the plan's fields, buffer, smem
+    assert "if (B < 1 || H < 1 || N < 1 || M < 1 || D < 1 || plan == " \
+        "nullptr)" in text
 
 
 @pytest.mark.parametrize("source", ["attention.cu", "attention_bf16.cu"])
@@ -158,8 +179,8 @@ def test_stress_patches_apply_to_the_kernels():
 
 def test_ablation_patches_apply_to_the_kernel():
     """scripts/attention_ablation.py patches the kernels' source text; each
-    patch of either kernel still finds its text, so the script measures
-    these kernels."""
+    patch of each of the three kernels still finds its text, so the script
+    measures these kernels."""
     path = os.path.join(os.path.dirname(__file__), "..", "scripts",
                         "attention_ablation.py")
     spec = importlib.util.spec_from_file_location("attention_ablation", path)
@@ -167,7 +188,9 @@ def test_ablation_patches_apply_to_the_kernel():
     spec.loader.exec_module(ablation)
     assert list(ablation.VARIANTS.values()) == [ablation.PATCHES,
                                                 ablation.PATCHES_BF16]
-    for variants in ablation.VARIANTS.values():
+    assert set(ablation.PATCHES_GENERAL) == {
+        "library", "no_copies", "no_qk", "no_softmax", "no_pv", "no_store"}
+    for variants in [*ablation.VARIANTS.values(), ablation.PATCHES_GENERAL]:
         for variant, patches in variants.items():
             for fname, old, _ in patches:
                 with open(os.path.join(build.CSRC_DIR, fname)) as f:
@@ -246,6 +269,27 @@ def counted(smoke, monkeypatch):
     smoke.reset_launches()
     yield smoke
     smoke.reset_launches()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_general_cases_reach_the_general_kernel(smoke, dtype):
+    """Every case of chip_smoke's general phase, and every shape it times,
+    routes to the general kernel, and the cases at the plan's switch sit
+    on each side of it."""
+    cases = smoke.general_cases(np.random.RandomState(2),
+                                torch.device("cpu"), dtype)
+    for name, q, k, v in cases:
+        assert attention._route(q, k, v) == "general", name
+    for _, b, h, n, m, d in smoke.GENERAL_SHAPES:
+        q = torch.empty(b, n, h, d, dtype=dtype).transpose(1, 2)
+        kv = torch.empty(b, m, h, d, dtype=dtype).transpose(1, 2)
+        assert attention._route(q, kv, kv) == "general"
+    paths = {name: attention.general_plan(
+        q.shape[2], k.shape[2], q.shape[3], dtype).resident
+        for name, q, k, _ in cases}
+    assert [r for name, r in paths.items() if "resident)" in name] == [1, 1]
+    assert [r for name, r in paths.items() if "two-pass)" in name] == [0]
 
 
 def test_wide_run_launches_what_its_layers_imply(counted):
