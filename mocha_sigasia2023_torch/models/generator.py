@@ -1,10 +1,13 @@
 """MOCHA generator: ST-GCN motion embedding + context-matching transformer.
 
-Counterpart of mocha_sigasia2023_tpu/models/generator.py (serving subset:
-``embed_tokens``, ``encode``, ``content_feature``, ``decode``,
+Counterpart of mocha_sigasia2023_tpu/models/generator.py
+(``embed_tokens``, ``encode``, ``content_feature``, ``decode``,
 ``decode_stream``, ``forward``).  A generator cast to bf16
 (``.to(torch.bfloat16)``) computes in bf16, as the JAX functions do with
-bf16 parameters.
+bf16 parameters.  ``encode``, ``decode`` and ``forward`` take ``train``
+and a ``torch.Generator`` for the training forwards (plain attention,
+dropout at ``cfg.dropout``), split into streams where the JAX functions
+split their ``key``.
 
     (B, 60, 24, 15) motion windows
       -> 1x1 conv -> joint ST-GCN (pool folded into the graph contraction,
@@ -32,7 +35,7 @@ from torch import nn
 from ..device import resolve_device
 from . import graph
 from .layers import (
-    conv1x1, leaky_relu, mean_variance_norm, numpy_init_,
+    conv1x1, leaky_relu, mean_variance_norm, numpy_init_, split,
     stgcn_block, stgcn_params, temporal_conv, transformer,
     transformer_params,
 )
@@ -149,6 +152,11 @@ class Generator(nn.Module):
         self.register_buffer("joint0_support", torch.as_tensor(
             _joint0_support(A_j.numpy())), persistent=False)
 
+    def forward(self, src_X, cha_X, **kw):
+        """:func:`forward` of this generator (what ``torch.func.
+        functional_call`` runs, e.g. on parameters cast to bf16)."""
+        return forward(self, src_X, cha_X, **kw)
+
 
 def init_generator(cfg: GeneratorConfig = GeneratorConfig(), seed: int = 0,
                    device=None) -> Generator:
@@ -186,12 +194,14 @@ def embed_tokens(gen: Generator, x: torch.Tensor) -> torch.Tensor:
     return h.permute(0, 2, 3, 1).reshape(b, t * v, c)
 
 
-def encode(gen: Generator, x: torch.Tensor) -> torch.Tensor:
+def encode(gen: Generator, x: torch.Tensor, *, generator=None,
+           train=False) -> torch.Tensor:
     """Embedding + positional embedding + encoder transformer."""
     tokens = embed_tokens(gen, x)
     tokens = tokens + gen.pos_emb[:, : tokens.shape[1]]
     return transformer(gen.encoder, tokens, None, heads=gen.cfg.encoder_heads,
-                       adain_on=False)
+                       adain_on=False, drop=gen.cfg.dropout,
+                       generator=generator, train=train)
 
 
 def content_feature(encoded: torch.Tensor) -> torch.Tensor:
@@ -199,24 +209,30 @@ def content_feature(encoded: torch.Tensor) -> torch.Tensor:
     return mean_variance_norm(encoded)
 
 
-def _decode_trunk(gen: Generator, src_encoded, cha_encoded):
+def _decode_trunk(gen: Generator, src_encoded, cha_encoded, *,
+                  generator=None, train=False):
     """Decoder transformer + the head's body ST-GCN, before the time
     repeat and unpool: (B, C, num_temp, nbody)."""
     cfg = gen.cfg
     tok = transformer(gen.decoder, src_encoded, cha_encoded,
-                      heads=cfg.decoder_heads, adain_on=True)
+                      heads=cfg.decoder_heads, adain_on=True,
+                      drop=cfg.dropout, generator=generator, train=train)
     b, s, c = tok.shape
     h = tok.reshape(b, cfg.num_temp, cfg.nbody, c).permute(0, 3, 1, 2)
     return stgcn_block(gen.head["body"], h, gen.A_b)
 
 
 def decode(gen: Generator, src_encoded: torch.Tensor,
-           cha_encoded: torch.Tensor) -> torch.Tensor:
+           cha_encoded: torch.Tensor, *, generator=None,
+           train=False) -> torch.Tensor:
     """Decoder transformer + inverse embedding -> (B, T, V, 15) motion, with
     the joint head's lrelu + 1x1 graph conv hoisted before the time repeat
     and the unpool folded into the adjacency contraction."""
     cfg = gen.cfg
-    h = _decode_trunk(gen, src_encoded, cha_encoded)
+    if generator is not None:
+        generator = split(generator, 2)[1]
+    h = _decode_trunk(gen, src_encoded, cha_encoded, generator=generator,
+                      train=train)
     p_j = gen.head["joint"]
     g = conv1x1(p_j["gcn"], leaky_relu(h, 0.2))   # (B, K*C', num_temp, 6)
     n, kc, t, v = g.shape
@@ -284,11 +300,13 @@ def decode_stream(gen: Generator, src_encoded: torch.Tensor,
     return last, vel0.permute(0, 2, 1)            # (B, T, 3)
 
 
-def forward(gen: Generator, src_X, cha_X, *, extract_feature: bool = False):
+def forward(gen: Generator, src_X, cha_X, *, extract_feature: bool = False,
+            generator=None, train=False):
     """Full generator forward."""
-    src_encoded = encode(gen, src_X)
-    cha_encoded = encode(gen, cha_X)
+    g = [None] * 3 if generator is None else split(generator, 4)[1:]
+    src_encoded = encode(gen, src_X, generator=g[0], train=train)
+    cha_encoded = encode(gen, cha_X, generator=g[1], train=train)
     if extract_feature:
         return (src_encoded, cha_encoded,
                 content_feature(src_encoded), content_feature(cha_encoded))
-    return decode(gen, src_encoded, cha_encoded)
+    return decode(gen, src_encoded, cha_encoded, generator=g[2], train=train)

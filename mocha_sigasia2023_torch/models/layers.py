@@ -5,9 +5,15 @@ Counterpart of mocha_sigasia2023_tpu/models/layers.py.  Parameters live in
 ``layers.0.ff.w1``, ...) with torch layouts (Linear (out, in), Conv2d
 (O, I, kh, kw)), so JAX weights load with a flatten.  The apply functions
 take those containers and tensors, as the JAX functions take param dicts.
-Inference only: there is no dropout path.  As in the JAX package, the
-convolutions cast their input to the weight's dtype, so bf16 weights
-compute in bf16; the attention product then launches the bf16 kernel.
+As in the JAX package, the convolutions cast their input to the weight's
+dtype, so bf16 weights compute in bf16; the attention product then
+launches the bf16 kernel.
+
+Training forwards (``train=True``) take the JAX package's training path:
+attention by the plain formula (the kernels have no backward; JAX trains
+through its einsum path too), and dropout where a ``torch.Generator`` is
+given, in place of the JAX ``key``.  :func:`split` derives independent
+generators from one, as ``jax.random.split`` derives keys.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import fused_attention
+from ..ops.attention import attention_reference, fused_attention
 from ..ops.numerics import safe_sqrt
 
 
@@ -106,6 +112,40 @@ def linear(p, x):
     return F.linear(x, p.weight, p.bias)
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def split(generator: torch.Generator, n: int):
+    """``n`` generators on ``generator``'s device, seeded from its seed
+    alone (not from its draws), as ``jax.random.split`` derives keys from a
+    key: the same generator splits into the same streams every time, so a
+    forward recomputed from the same seed redraws the same masks.  Each
+    generator is either drawn from or split, never both."""
+    base = _splitmix64(generator.initial_seed())
+    return [torch.Generator(device=generator.device).manual_seed(
+        _splitmix64((base + i + 1) & _MASK64)) for i in range(n)]
+
+
+def dropout(x, rate: float, generator, train: bool):
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate), the mask drawn from
+    ``generator`` (on ``x``'s device); the identity unless training with a
+    generator and a positive rate."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = (torch.rand(x.shape, generator=generator, device=x.device)
+            < keep).to(x.dtype)
+    return x * mask * (1.0 / keep)
+
+
 def layer_norm(p, x, eps=1e-5):
     return F.layer_norm(x, (x.shape[-1],), p.weight, p.bias, eps)
 
@@ -162,11 +202,14 @@ def stgcn_block(p, x, A):
 # ---------------------------------------------------------------------------
 
 
-def attention(p, src, tar=None, *, heads, adain=False):
+def attention(p, src, tar=None, *, heads, adain=False, drop=0.0,
+              generator=None, train=False):
     """Multi-head attention; with ``adain=True`` queries/keys read
-    instance-normalized tokens while values keep style.  The (b, h, n, dh)
-    product runs through :func:`fused_attention` (the CUDA kernel on the
-    card, the plain version on the CPU)."""
+    instance-normalized tokens while values keep style.  Serving runs the
+    (b, h, n, dh) product through :func:`fused_attention` (the CUDA kernel
+    on the card, the plain version on the CPU).  A training forward takes
+    the plain formula on every device, with dropout on the attention weights
+    and on the ``to_out`` output, as the JAX package trains."""
     tar = src if tar is None else tar
     q_in = mean_variance_norm(src) if adain else src
     k_in = mean_variance_norm(tar) if adain else tar
@@ -178,18 +221,31 @@ def attention(p, src, tar=None, *, heads, adain=False):
     b, n, inner = q.shape
     dh = inner // heads
 
-    def split(t_):
+    def split_heads(t_):
         return t_.reshape(b, t_.shape[1], heads, dh).transpose(1, 2)
 
-    out = fused_attention(split(q), split(k), split(v), scale=dh ** -0.5)
+    q, k, v = split_heads(q), split_heads(k), split_heads(v)
+    g_attn = g_out = None
+    if train:
+        if generator is not None:
+            g_attn, g_out = split(generator, 2)
+        out = attention_reference(
+            q, k, v, dh ** -0.5,
+            lambda a: dropout(a, drop, g_attn, train))
+    else:
+        out = fused_attention(q, k, v, scale=dh ** -0.5)
     out = out.transpose(1, 2).reshape(b, n, inner)
     if "to_out" in p:
-        out = linear(p["to_out"], out)
+        out = dropout(linear(p["to_out"], out), drop, g_out, train)
     return out
 
 
-def feedforward(p, x):
-    return linear(p["w2"], gelu(linear(p["w1"], x)))
+def feedforward(p, x, *, drop=0.0, generator=None, train=False):
+    g1 = g2 = None
+    if train and generator is not None:
+        g1, g2 = split(generator, 2)
+    h = dropout(gelu(linear(p["w1"], x)), drop, g1, train)
+    return dropout(linear(p["w2"], h), drop, g2, train)
 
 
 def adain(p, x, style):
@@ -204,12 +260,17 @@ def adain(p, x, style):
     return (1.0 + gamma) * mean_variance_norm(x) + beta
 
 
-def transformer(p, x, sty=None, *, heads, adain_on=False):
+def transformer(p, x, sty=None, *, heads, adain_on=False, drop=0.0,
+                generator=None, train=False):
     """depth x [AdaIN? -> attention(+res) -> FF(+res)], no LayerNorm."""
     for layer in p["layers"]:
         if sty is not None and adain_on:
             x = adain(layer["adain"], x, sty)
-        x = attention(layer["attn"], x, sty, heads=heads,
-                      adain=adain_on) + x
-        x = feedforward(layer["ff"], x) + x
+        g1 = g2 = None
+        if generator is not None:
+            generator, g1, g2 = split(generator, 3)
+        x = attention(layer["attn"], x, sty, heads=heads, adain=adain_on,
+                      drop=drop, generator=g1, train=train) + x
+        x = feedforward(layer["ff"], x, drop=drop, generator=g2,
+                        train=train) + x
     return x

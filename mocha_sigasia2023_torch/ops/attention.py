@@ -16,7 +16,9 @@ for (B, H, N, d) queries and (B, H, M, d) keys/values:
   memory, asynchronous copies; any N, M, d and element strides), laid out
   by :func:`general_plan`;
 * on a CPU tensor it runs :func:`attention_reference`, the plain form of
-  the same arithmetic.
+  the same arithmetic;
+* on an input that requires grad under grad mode it raises, on every
+  device: the kernels have no backward.  Training takes the plain formula.
 
 ``fused_attention.launches`` counts tuned float32 kernel launches,
 ``fused_attention.launches_bf16`` tuned bfloat16 ones and
@@ -167,18 +169,22 @@ def general_resident_keys(n: int, d: int, dtype) -> int:
         // GENERAL_KEYS * GENERAL_KEYS
 
 
-def attention_reference(q, k, v, scale: float):
+def attention_reference(q, k, v, scale: float, weights_fn=None):
     """Plain PyTorch softmax(q k^T * scale) v.  Float32 inputs take the
     JAX package's einsum path; bfloat16 inputs take the TPU kernel's
     arithmetic: float32 logits and softmax, P rounded to bf16, P v summed in
-    float32, the output rounded to bf16."""
-    if q.dtype == torch.bfloat16:
-        dots = torch.einsum("bhnd,bhmd->bhnm", q.float(), k.float()) * scale
-        p = torch.softmax(dots, dim=-1).to(torch.bfloat16)
-        return torch.einsum("bhnm,bhmd->bhnd", p.float(),
+    float32, the output rounded to bf16.  ``weights_fn``, when given, maps
+    the softmax weights before the product with v (training's dropout)."""
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k = q.float(), k.float()
+    attn = torch.softmax(torch.einsum("bhnd,bhmd->bhnm", q, k) * scale,
+                         dim=-1)
+    if weights_fn is not None:
+        attn = weights_fn(attn)
+    if bf16:
+        return torch.einsum("bhnm,bhmd->bhnd", attn.to(torch.bfloat16).float(),
                             v.float()).to(torch.bfloat16)
-    dots = torch.einsum("bhnd,bhmd->bhnm", q, k) * scale
-    attn = torch.softmax(dots, dim=-1)
     return torch.einsum("bhnm,bhmd->bhnd", attn, v)
 
 
@@ -251,7 +257,20 @@ def fused_attention(q, k, v, *, scale: float):
     need a unit last stride; other strides are free (the generator passes
     (B, N, H, d) projections viewed as (B, H, N, d)).  The output is a
     (B, H, N, d) view of a (B, N, H, d) buffer, so ``out.transpose(1, 2)``
-    is contiguous."""
+    is contiguous.
+
+    The kernels have no backward (nor has the TPU kernel), and their output
+    carries no gradient: an input that requires one under grad mode raises,
+    on every device, so that a forward to be differentiated cannot reach a
+    kernel on the card while the CPU's plain version quietly differentiates.
+    Such a forward takes the plain formula, ``models.layers.attention(...,
+    train=True)``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "fused_attention: an input requires grad, but the kernels have "
+            "no backward; differentiate through the training forward "
+            "(models.layers.attention(..., train=True)) or run under "
+            "torch.no_grad()")
     if q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
     if q.device.type != "cuda":
