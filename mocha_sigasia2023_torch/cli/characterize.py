@@ -7,7 +7,8 @@ character's style and writes ``Src_``/``Ours_``/``CM_`` BVHs per clip.
 It runs on the GPU unless ``--device cpu`` is given.
 
 Checkpoints: the reference PyTorch files (``model_ours/pth/gen_125.pt``,
-``cvae_020000.pt``).  With ``--random-init`` it runs on fresh weights drawn
+``cvae_020000.pt``), and for the generator also the port trainer's
+(``model_ours/pth/gen_125.ckpt``, its EMA served).  With ``--random-init`` it runs on fresh weights drawn
 from NumPy seeds (not the JAX package's ``PRNGKey(1777)`` weights).
 
 Run: python -m mocha_sigasia2023_torch.cli.characterize \\
@@ -39,6 +40,8 @@ from ..models.generator import init_generator
 from ..runtime import export as rtexport
 from ..runtime import features as rtf
 from ..runtime import stream as rts
+from ..train import checkpoint
+from ..train.trainer import load_generator as load_trained_generator
 from ..utils import ensure_dirs, get_config
 
 DEFAULT_CONFIG = os.path.join(
@@ -46,17 +49,19 @@ DEFAULT_CONFIG = os.path.join(
     "configs", "config.yaml")
 
 
-def _require_pt(path: str, flag: str) -> None:
-    if not path.endswith(".pt"):
+def _require_pt(path: str, flag: str, suffixes=(".pt",)) -> None:
+    if not path.endswith(suffixes):
         raise SystemExit(
-            f"{flag} {path}: only reference .pt checkpoints are read; the "
-            "JAX package's msgpack checkpoints wait for the port's trainers "
-            "and their checkpoint module (ROADMAP.md R8)")
+            f"{flag} {path}: only {' and '.join(suffixes)} checkpoints are "
+            "read; the JAX package's msgpack checkpoints wait for the "
+            "port's msgpack reader (ROADMAP.md R8)")
 
 
 def load_generator(args, cfg: GeneratorConfig, dev):
     if args.gen_ckpt:
-        _require_pt(args.gen_ckpt, "--gen-ckpt")
+        _require_pt(args.gen_ckpt, "--gen-ckpt", (".pt", checkpoint.SUFFIX))
+        if args.gen_ckpt.endswith(checkpoint.SUFFIX):
+            return load_trained_generator(args.gen_ckpt, cfg, device=dev)
         return convert.load_reference_generator_checkpoint(
             args.gen_ckpt, cfg, device=dev)
     if not args.random_init:
@@ -116,7 +121,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "Src_/Ours_/CM_ triple per clip")
     ap.add_argument("--cha", required=True, help="character BVH")
     ap.add_argument("--gen-ckpt", default=None,
-                    help="reference generator checkpoint (.pt)")
+                    help="generator checkpoint: the reference's .pt or the "
+                         "port trainer's .ckpt (its EMA)")
     ap.add_argument("--cvae-ckpt", default=None,
                     help="reference CVAE state dict (.pt)")
     ap.add_argument("--cvae-norm", default=None, help="cvae_norm.npz")

@@ -39,7 +39,8 @@ def _common(ap):
     ap.add_argument("--config", default=DEFAULT_CONFIG)
     ap.add_argument("--data-dir", required=True)
     ap.add_argument("--gen-ckpt", default=None,
-                    help="reference generator checkpoint (.pt)")
+                    help="generator checkpoint: the reference's .pt or the "
+                         "port trainer's .ckpt (its EMA)")
     ap.add_argument("--random-init", action="store_true",
                     help="fresh weights from a NumPy seed")
     ap.add_argument("--device", default="cuda",

@@ -1,19 +1,21 @@
 """Windowed features, normalization stats and the windowed dataset.
 
-Counterpart of mocha_sigasia2023_tpu/data/dataset.py:31-246: the
+Counterpart of mocha_sigasia2023_tpu/data/dataset.py:31-288: the
 finite-difference window velocities, the character-space X / parent-local
 Y window features (computed on the device in chunks of windows), the
 per-joint-channel norm stats, the database's windows and labels
 (``database_window_features``, mocha_sigasia2023_tpu/runtime/
 features.py:522-544, shared by ``MotionDataset`` and the feature exports),
 ``MotionDataset`` over a ``database.bin`` (which writes ``norm.npz``
-beside it) and ``iterate_batches``.  Feature
+beside it), ``iterate_batches`` and ``prefetch_batches``.  Feature
 layout per joint (15 channels): [pos(3), xform_xy(6), vel(3), ang(3)].
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
 from typing import Dict, Iterator
 
 import numpy as np
@@ -175,3 +177,35 @@ def iterate_batches(dataset: MotionDataset, batch_size: int, *,
     stop = n - (n % batch_size) if drop_last else n
     for i in range(0, stop, batch_size):
         yield dataset[order[i:i + batch_size]]
+
+
+def prefetch_batches(batches: Iterator[Dict], *, place=None,
+                     depth: int = 2) -> Iterator[Dict]:
+    """Iterate ``batches`` with a background thread gathering (and, through
+    ``place``, placing) up to ``depth`` batches ahead, so that host batch
+    assembly and the host-to-device copy overlap the device step.  A
+    ``place`` such as ``lambda b: {k: torch.from_numpy(v).pin_memory().to(
+    dev, non_blocking=True) for k, v in b.items()}`` copies from pinned
+    memory.  An exception in the worker is raised again in the consumer."""
+    q: "queue.Queue" = queue.Queue(maxsize=max(int(depth), 1))
+    end = object()
+
+    def worker():
+        try:
+            for b in batches:
+                q.put(place(b) if place is not None else b)
+        except BaseException as e:  # raised again on the consumer's side
+            q.put(e)
+            return
+        q.put(end)
+
+    t = threading.Thread(target=worker, daemon=True,
+                         name="mocha-batch-prefetch")
+    t.start()
+    while True:
+        item = q.get()
+        if item is end:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item

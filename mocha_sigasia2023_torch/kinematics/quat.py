@@ -274,6 +274,56 @@ def chain_to_root(parents: tuple, bone: int) -> tuple:
     return tuple(reversed(chain))
 
 
+@functools.lru_cache(maxsize=None)
+def ancestor_chains(parents: tuple) -> np.ndarray:
+    """Static (J, D) ancestor table: row j lists root..j, front-padded with
+    the index J (an identity bone appended by :func:`_with_identity`)."""
+    J = len(parents)
+    chains = []
+    for j in range(J):
+        c, b = [], j
+        while b != -1:
+            c.append(b)
+            b = int(parents[b])
+        chains.append(c[::-1])
+    D = max(len(c) for c in chains)
+    anc = np.full((J, D), J, dtype=np.int64)
+    for j, c in enumerate(chains):
+        anc[j, D - len(c):] = c
+    anc.setflags(write=False)
+    return anc
+
+
+def _with_identity(*arrays):
+    """Append an identity bone at index J: the unit quaternion to the
+    rotations (the first array), zeros to the vectors."""
+    lrot = arrays[0]
+    ident = const((1.0, 0.0, 0.0, 0.0), lrot).expand(lrot.shape[:-2] + (1, 4))
+    out = [torch.cat([lrot, ident], dim=-2)]
+    for a in arrays[1:]:
+        out.append(torch.cat([a, a.new_zeros(a.shape[:-2] + (1, 3))], dim=-2))
+    return out
+
+
+def fk_vel_chain_all(lrot, lpos, lvel, lang, parents):
+    """:func:`fk_vel` over ancestor chains: every joint accumulates the
+    products along its static root-to-joint chain, by gathers alone (no
+    in-place writes), the form the training losses differentiate."""
+    anc = ancestor_chains(_as_parents_key(parents))
+    lrotp, lposp, lvelp, langp = _with_identity(lrot, lpos, lvel, lang)
+    col = index(anc[:, 0], lrot.device)
+    gr, gp = lrotp[..., col, :], lposp[..., col, :]
+    gv, ga = lvelp[..., col, :], langp[..., col, :]
+    for d in range(1, anc.shape[1]):
+        col = index(anc[:, d], lrot.device)
+        rp = mul_vec(gr, lposp[..., col, :])
+        gv = gv + mul_vec(gr, lvelp[..., col, :]) + _cross(ga, rp)
+        ga = ga + mul_vec(gr, langp[..., col, :])
+        gp = gp + rp
+        gr = mul(gr, lrotp[..., col, :])
+    return gr, gp, gv, ga
+
+
 def fk(lrot, lpos, parents):
     """Local -> global rotations/positions, one batched update per tree
     level.  lrot (..., J, 4), lpos (..., J, 3)."""

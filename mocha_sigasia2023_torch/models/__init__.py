@@ -1,5 +1,7 @@
-"""Graph tables, layers, the generator, the CVAE and the JAX weight import."""
+"""Graph tables, layers, the generator, the CVAE, the projector and the
+weight import."""
 
-from . import convert, cvae, generator, graph, layers
+from . import convert, cvae, generator, graph, layers, projector
 from .cvae import CVAEConfig
 from .generator import GeneratorConfig
+from .projector import ProjectorConfig

@@ -8,8 +8,9 @@ Two sources:
   dotted keys and a strict ``load_state_dict``.  The pytrees come as nested
   dicts/lists of NumPy arrays (``jax.tree.map(np.asarray, params)``).
 - The reference's PyTorch checkpoints: the generator trainer's
-  ``{'gen', 'gen_ema', 'gen_opt'}`` dict (``gen_125.pt``) and the CVAE's
-  bare state dict (``cvae_020000.pt``), with or without DataParallel
+  ``{'gen', 'gen_ema', 'gen_opt'}`` dict (``gen_125.pt``), the CVAE's
+  bare state dict (``cvae_020000.pt``) and the projector's state dict,
+  with or without DataParallel
   ``module.`` prefixes.  Every port parameter name maps to one reference
   key; the reference's fixed buffers (graph adjacency stacks, pooling
   matrices, sincos tables) are recomputed by the port and skipped.
@@ -26,6 +27,7 @@ import torch
 from ..device import resolve_device
 from .cvae import CVAE, CVAEConfig
 from .generator import Generator, GeneratorConfig
+from .projector import Projector, ProjectorConfig
 
 
 def flatten_pytree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -61,6 +63,12 @@ def cvae_from_jax(params_np, cfg: CVAEConfig = CVAEConfig(),
     return _load(CVAE(cfg), params_np, device)
 
 
+def projector_from_jax(params_np, cfg: ProjectorConfig = ProjectorConfig(),
+                       device=None) -> Projector:
+    """The port's Projector holding the JAX projector's weights."""
+    return _load(Projector(cfg), params_np, device)
+
+
 # ---------------------------------------------------------------------------
 # Reference PyTorch checkpoints
 # ---------------------------------------------------------------------------
@@ -83,6 +91,7 @@ _GENERATOR_KEYS = (
     (r"\.adain\.fc1\.", ".0.style.2."),
     (r"\.adain\.fc2\.", ".0.style.4."),
 )
+_PROJECTOR_KEYS = ((r"^fc1\.", "mlp.0."), (r"^fc2\.", "mlp.2."))
 _CVAE_KEYS = (
     (r"^prior\.layers\.", "prior_net.encoder.layers."),
     (r"^prior\.", "prior_net."),
@@ -160,6 +169,15 @@ def cvae_from_torch(state_dict: Dict, cfg: CVAEConfig = CVAEConfig(), *,
     """The port's CVAE from a reference CVAE state dict."""
     return _from_reference(CVAE(cfg), state_dict, _CVAE_KEYS,
                            _CVAE_BUFFER_KEYS, "CVAE", strict, device)
+
+
+def projector_from_torch(state_dict: Dict,
+                         cfg: ProjectorConfig = ProjectorConfig(), *,
+                         strict: bool = True, device=None) -> Projector:
+    """The port's Projector from a reference Projector state dict (its MLP
+    at ``mlp.0`` / ``mlp.2``)."""
+    return _from_reference(Projector(cfg), state_dict, _PROJECTOR_KEYS, (),
+                           "Projector", strict, device)
 
 
 def load_reference_generator_checkpoint(

@@ -1,3 +1,4 @@
-"""Config loading (a YAML-subset reader) and output directories."""
+"""Config loading (a YAML-subset reader), output directories, seeding,
+parameter listings and metrics logging."""
 
-from .config import ensure_dirs, get_config
+from .config import describe_params, ensure_dirs, get_config, set_seed

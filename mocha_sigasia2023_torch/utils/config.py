@@ -1,7 +1,8 @@
 """YAML config loading without PyYAML.
 
-Counterpart of ``get_config``/``ensure_dirs`` in
-mocha_sigasia2023_tpu/utils/config.py.  The configs use a small subset of
+Counterpart of ``get_config``, ``ensure_dirs``, ``set_seed`` and
+``describe_params`` in mocha_sigasia2023_tpu/utils/config.py.  The configs
+use a small subset of
 YAML, and the card's machine has no PyYAML, so this module reads that
 subset itself:
 
@@ -22,8 +23,12 @@ streams and complex keys are not read; they raise ``ConfigError``.
 from __future__ import annotations
 
 import os
+import random
 import re
 from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
 
 _NULL = {"", "~", "null", "Null", "NULL"}
 _TRUE = {"true", "True", "TRUE", "yes", "Yes", "YES", "on", "On", "ON"}
@@ -312,3 +317,33 @@ def ensure_dirs(paths) -> None:
             ensure_dir(p)
     else:
         ensure_dir(paths)
+
+
+def set_seed(seed: int = 1777) -> None:
+    """Seed the host-side generators (Python, NumPy, torch's global one);
+    the port's dropout and patch sampling take explicit generators."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    os.environ["PYTHONHASHSEED"] = str(seed)
+
+
+def describe_params(module: torch.nn.Module, title: str = "Generator") -> str:
+    """Every parameter of ``module`` with its path, shape and size, and the
+    total count, in the JAX package's ``info-network`` format: paths as JAX
+    key strings (``['encoder']['layers'][0]...``), in the order JAX
+    flattens its pytree (dict keys sorted, list items in order)."""
+    def parts(name):
+        return [int(c) if c.isdigit() else c for c in name.split(".")]
+
+    lines, total = [title], 0
+    for name, p in sorted(module.named_parameters(),
+                          key=lambda kv: parts(kv[0])):
+        shape = tuple(p.shape)
+        n = int(np.prod(shape)) if shape else 1
+        total += n
+        path = "".join(f"[{c}]" if isinstance(c, int) else f"['{c}']"
+                       for c in parts(name))
+        lines.append(f"  {path}: {shape} [{n:,}]")
+    lines.append(f"total parameters: {total:,}")
+    return "\n".join(lines)
