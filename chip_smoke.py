@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving and dataset paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, dataset and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -95,7 +96,25 @@ Phases (any failure exits non-zero; each prints its wall time):
      within 5e-4, cnt 5e-3).  Build frames/s, encode windows/s and the
      character export's savez_compressed are printed on lines of their
      own.
-  The general kernel's counter stays at 0 through phases 4-10: the
+  11. train: cli/train.main in-process at full width for one epoch on
+     the dataset phase's files (6,960 windows, 108 steps at batch 64,
+     dropout on, float32): every logged metric finite, the mean of the
+     last 5 logged loss_total values under the first 5's, no attention
+     kernel launched while training (the training forwards take the plain
+     formula); the step period from CUDA events, the host's time in the
+     call, the epoch wall and peak memory printed on lines of their own; 3
+     more steps under torch.profiler (kernel time, idle share, launches).
+     Then one step of the checkpoint's weights on the card and on the CPU
+     on the same batch of 8 (dropout off): losses within rtol 1e-4, NCE
+     logits within 1e-4 of the largest positive, each top-k accuracy
+     within the rows their measured gap can flip, gradients before the
+     clip within rtol 1e-3 / atol 1e-5 x the model's largest (each
+     tensor's distance to a float64 CPU gradient printed beside it).
+     Then characterize --gen-ckpt on the written checkpoint (4 clips of
+     240 frames): its EMA served through the tuned fp32 kernel, exactly
+     the launches its windows and frames imply, every output parsed back
+     finite.
+  The general kernel's counter stays at 0 through phases 4-11: the
   shipped config never leaves the tuned kernels.
 
 The line before the last is a JSON object describing every kernel; the
@@ -123,11 +142,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from mocha_sigasia2023_torch.cli import (  # noqa: E402
     characterize, collect_features, generate_database)
+from mocha_sigasia2023_torch.cli import train as train_cli  # noqa: E402
 from mocha_sigasia2023_torch.data.dataset import (  # noqa: E402
-    MotionDataset, compute_norm_stats, window_xy_features)
+    MotionDataset, compute_norm_stats, iterate_batches, window_xy_features)
 from mocha_sigasia2023_torch.data.preprocess import featurize_clip  # noqa: E402
 from mocha_sigasia2023_torch.data.synthetic import make_mocha_bvh_data  # noqa: E402
 from mocha_sigasia2023_torch.data.windows import (  # noqa: E402
@@ -136,6 +158,8 @@ from mocha_sigasia2023_torch.io import bvh  # noqa: E402
 from mocha_sigasia2023_torch.models.cvae import CVAEConfig, init_cvae  # noqa: E402
 from mocha_sigasia2023_torch.models.generator import (  # noqa: E402
     GeneratorConfig, content_feature, init_generator)
+from mocha_sigasia2023_torch.models.projector import (  # noqa: E402
+    apply_projector)
 from mocha_sigasia2023_torch.ops import attention, build  # noqa: E402
 from mocha_sigasia2023_torch.runtime import export  # noqa: E402
 from mocha_sigasia2023_torch.runtime import features as rtf  # noqa: E402
@@ -144,6 +168,11 @@ from mocha_sigasia2023_torch.runtime.live import (  # noqa: E402
 from mocha_sigasia2023_torch.runtime.stream import (  # noqa: E402
     build_consts, cast_database, make_batch_runner, stack_consts,
     stack_stream_inputs)
+from mocha_sigasia2023_torch.train import checkpoint as train_ckpt  # noqa: E402
+from mocha_sigasia2023_torch.train.losses import (  # noqa: E402
+    convert_YtilToX, patch_nce_loss)
+from mocha_sigasia2023_torch.train.trainer import (  # noqa: E402
+    GeneratorTrainer)
 from mocha_sigasia2023_torch.utils import get_config  # noqa: E402
 
 # H100 SXM data sheet: HBM bandwidth, dense TF32 and bf16 tensor-core rates,
@@ -210,6 +239,41 @@ def card_line() -> str:
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
+
+
+def device_time_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profiled(fn):
+    """Run fn under torch.profiler on the card; return (result, wall s,
+    kernel rows (name, device us, calls), the profiler)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # kernel events only: the aten ops that launch them carry the same
+    # device time again
+    rows = [(e.key, device_time_us(e), e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and device_time_us(e) > 0]
+    return out, wall, rows, prof
+
+
+def summarize(stage, wall, rows, top=12):
+    kernel_us = sum(us for _, us, _ in rows)
+    return {"stage": stage, "wall_s": wall, "device_kernel_s": kernel_us / 1e6,
+            "device_idle_share": 1.0 - kernel_us / 1e6 / wall,
+            "kernel_launches": sum(n for _, _, n in rows),
+            "top_kernels": [{"name": k[:90], "device_ms": us / 1e3,
+                             "calls": n} for k, us, n in
+                            sorted(rows, key=lambda r: -r[1])[:top]]}
 
 
 HOLD_CYCLES = 20_000_000   # ~10 ms of a spinning kernel at H100 clocks
@@ -1906,6 +1970,352 @@ def dataset_parity(cfg, dev, root, bvh_dir, names):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# train: cli/train for an epoch on the dataset phase's files
+# ---------------------------------------------------------------------------
+
+TRAIN_EPOCHS = 1
+LOSS_WINDOW = 5              # logged values averaged at each end of the run
+STEP_WARMUP = 5              # steps left out of the step-time median
+TRAIN_PARITY_BATCH = 8
+TRAIN_LOSS_RTOL = 1e-4       # GPU vs CPU, one step
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-3, 1e-5   # atol x the model's max |g|
+TRAIN_LOSSES = ("gen/loss_total", "gen/loss_recon", "gen/loss_nce_cnt",
+                "gen/loss_cyc")
+TRAIN_ACCURACIES = {"gen/cnt_acc_top1": 1, "gen/cnt_acc_top5": 5}
+TRAIN_CHARACTERIZE_CLIPS, TRAIN_CHARACTERIZE_FRAMES = 4, 240
+EPOCH_LINE = re.compile(r"epoch \d+/\d+ loss_total=\S+ \(([\d.]+)s\)")
+
+
+@contextlib.contextmanager
+def timed_train_steps(dev):
+    """Inside the block, every GeneratorTrainer.train_step marks its start
+    (a CUDA event on the card, the host clock on the CPU) and the last one
+    its end too, and its host time is taken; the yielded lists of step
+    periods and host times (ms) fill when the block ends.  A period runs
+    from one step's start to the next's on the device's timeline: the
+    device time of a step when the host keeps ahead, the host's when it
+    does not."""
+    real, marks, periods, host = GeneratorTrainer.train_step, [], [], []
+
+    def mark():
+        if dev.type == "cuda":
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+        return time.perf_counter()
+
+    def timed(self, *args, **kw):
+        marks.append(mark())
+        t0 = time.perf_counter()
+        try:
+            return real(self, *args, **kw)
+        finally:
+            host.append((time.perf_counter() - t0) * 1e3)
+
+    GeneratorTrainer.train_step = timed
+    try:
+        yield periods, host
+    finally:
+        GeneratorTrainer.train_step = real
+        marks.append(mark())
+        sync(dev)
+        periods.extend(a.elapsed_time(b) if dev.type == "cuda"
+                       else (b - a) * 1e3 for a, b in zip(marks, marks[1:]))
+
+
+TRAIN_PROFILE_STEPS = 3
+
+
+def profile_train_steps(trainer, ds, dev, seed, steps=TRAIN_PROFILE_STEPS):
+    """``steps`` train steps of ``trainer`` under torch.profiler on the
+    card (after one unprofiled): wall, kernel time, device idle share,
+    kernel launches and the top kernels.  Not measured on the CPU."""
+    if dev.type != "cuda":
+        return "not measured"
+    batches = iterate_batches(ds, int(trainer.config["batch_size"]),
+                              seed=seed)
+    bs, bc = (trainer.on_device(next(batches)) for _ in range(2))
+    norm = trainer.on_device(ds.norm)
+    key = torch.Generator().manual_seed(seed)
+
+    def run(n):
+        for _ in range(n):
+            trainer.train_step(bs, bc, norm, key)
+
+    run(1)
+    _, wall, rows, _ = profiled(lambda: run(steps))
+    out = summarize(f"{steps} train steps", wall, rows)
+    out["kernel_launches_per_step"] = out["kernel_launches"] / steps
+    return out
+
+
+def read_metrics(path):
+    """{tag: [values in step order]} from a MetricsLogger JSONL file."""
+    out = {}
+    for line in open(path):
+        rec = json.loads(line)
+        out.setdefault(rec["tag"], []).append((rec["step"], rec["value"]))
+    return {k: [v for _, v in sorted(vals)] for k, vals in out.items()}
+
+
+def nce_logits(t, bs, bc, norm):
+    """The PatchNCE logits of compute_gen_loss's feature pass for this
+    trainer, batch and norm (no dropout): what its top-k accuracies
+    rank."""
+    bs, bc, norm = t.on_device(bs), t.on_device(bc), t.on_device(norm)
+    X_mean, X_std = norm["X_mean"][None, None], norm["X_std"][None, None]
+
+    def norm_x(X):
+        return (X[:, :, 1:] - X_mean[:, :, 1:]) / X_std[:, :, 1:]
+
+    with torch.no_grad():
+        src_in, cha_in = norm_x(bs["X"]), norm_x(bc["X"])
+        trans = t.gen(src_in, cha_in, train=True)
+        trans = trans * norm["Y_std"][None, None, 1:] \
+            + norm["Y_mean"][None, None, 1:]
+        trans_in = norm_x(convert_YtilToX(trans, bs["Y"][:, :, 0:1],
+                                          t.parents))
+        _, _, src_cnt, trans_cnt = t.gen(src_in, trans_in, train=True,
+                                         extract_feature=True)
+        feat_k, pid = apply_projector(t.prj, t.prj_cfg, trans_cnt)
+        feat_q, _ = apply_projector(t.prj, t.prj_cfg, src_cnt, pid)
+        return patch_nce_loss(feat_q, feat_k)[1].cpu()
+
+
+def near_ties(logits, k, tol):
+    """Rows whose positive logit (column 0) lies within ``tol`` of the k-th
+    largest negative: rows whose top-k hit a rounding of the logits within
+    ``tol`` can flip."""
+    kth = torch.topk(logits[:, 1:], k, dim=1).values[:, -1]
+    return int((torch.abs(logits[:, 0] - kth) <= tol).sum())
+
+
+def float64_gradients(config, ckpt_path, bs, bc, norm, seed):
+    """The gradients of the checkpoint's weights on this batch, in float64
+    on the CPU (dropout off): what both float32 runs approximate."""
+    t = GeneratorTrainer(dict(config, dropout=False), 1, seed=seed,
+                         device="cpu")
+    t.load(ckpt_path)
+    t.gen.double()
+    t.prj.double()
+
+    def f64(tree):
+        return {k: np.asarray(v, np.float64) for k, v in tree.items()}
+
+    t.backward(f64(bs), f64(bc), f64(norm))
+    return {f"{part}.{n}": p.grad.detach()
+            for part, m in (("gen", t.gen), ("prj", t.prj))
+            for n, p in m.named_parameters()}
+
+
+def train_parity(config, ckpt_path, ds, dev, seed):
+    """One train_step of the checkpoint's weights on ``dev`` and on the CPU
+    on the same batch (dropout off): the losses within TRAIN_LOSS_RTOL,
+    the gradients before the clip within TRAIN_GRAD_RTOL / TRAIN_GRAD_ATOL
+    x the model's largest |g|, the NCE logits within TRAIN_LOSS_RTOL of
+    the largest positive, each top-k accuracy within the share of rows
+    that the logits' measured gap can flip; the stepped weights finite on
+    both.  Returns (gaps, the failures)."""
+    batches = iterate_batches(ds, TRAIN_PARITY_BATCH, seed=seed)
+    bs, bc = next(batches), next(batches)
+    runs = {}
+    for d in dict.fromkeys([dev, torch.device("cpu")]):
+        t = GeneratorTrainer(dict(config, dropout=False), 1, seed=seed,
+                             device=d)
+        t.load(ckpt_path)
+        metrics = {k: float(v) for k, v in t.backward(bs, bc,
+                                                      ds.norm).items()}
+        grads = {f"{part}.{n}": p.grad.detach().cpu()
+                 for part, m in (("gen", t.gen), ("prj", t.prj))
+                 for n, p in m.named_parameters()}
+        logits = nce_logits(t, bs, bc, ds.norm)
+        t.update()
+        finite = all(bool(torch.isfinite(p).all()) for p in
+                     (*t.gen.parameters(), *t.prj.parameters(),
+                      *t.gen_ema.parameters()))
+        runs[d.type] = (metrics, grads, logits, finite)
+    (m_d, g_d, logits_d, fin_d), (m_c, g_c, logits, fin_c) = (
+        runs[dev.type], runs["cpu"])
+    failures = []
+    if not (fin_d and fin_c):
+        failures.append("non-finite weights after the step")
+    gaps = {}
+    for name in TRAIN_LOSSES:
+        gaps[name] = abs(m_d[name] - m_c[name]) / abs(m_c[name])
+        if gaps[name] > TRAIN_LOSS_RTOL:
+            failures.append(f"{name} {m_d[name]} on {dev.type}, {m_c[name]}"
+                            f" on the CPU (rel {gaps[name]:.3e})")
+    # the accuracies rank the NCE logits: they may differ only in rows whose
+    # positive sits within the logits' measured gap between the devices
+    # (twice it: both sides of a comparison move) of the k-th negative
+    noise = float((logits_d - logits).abs().max())
+    scale = float(logits[:, 0].abs().max())    # (the diagonal holds -10/T)
+    gaps["nce_logits"] = {"max_abs": noise, "max_positive": scale}
+    if noise > TRAIN_LOSS_RTOL * scale:
+        failures.append(f"NCE logits differ by {noise:.3e}")
+    for name, k in TRAIN_ACCURACIES.items():
+        ties = near_ties(logits, k, 2 * noise)
+        bar = 100.0 * ties / logits.shape[0]
+        gaps[name] = {"abs": abs(m_d[name] - m_c[name]), "bar": bar,
+                      "near_ties": ties, dev.type: m_d[name],
+                      "cpu": m_c[name]}
+        if gaps[name]["abs"] > bar + 1e-3:
+            failures.append(f"{name} {m_d[name]} on {dev.type}, {m_c[name]}"
+                            f" on the CPU, over its bar {bar} ({ties} rows "
+                            f"within {2 * noise:.3e} of a flip)")
+    # the bar's atol scales with the model's largest gradient, as the JAX
+    # package's own gradient comparison does (tests/test_train.py:210): a
+    # tensor whose exact gradient vanishes (decoder layer 0's ff.w2.bias,
+    # removed by layer 1's instance norm) or cancels carries only rounding
+    # on each device.  Beside it, each device's distance to a float64
+    # gradient on the CPU, and the bar scaled by the tensor's own largest.
+    g64 = float64_gradients(config, ckpt_path, bs, bc, ds.norm, seed)
+    gscale = max(float(c.abs().max()) for c in g_c.values())
+    per_tensor = {}
+    for name, c in g_c.items():
+        diff = torch.abs(g_d[name] - c)
+        bound = TRAIN_GRAD_RTOL * torch.abs(c) + TRAIN_GRAD_ATOL * gscale
+        scale = float(c.abs().max())
+        per_tensor[name] = {
+            "max_abs": float(diff.max()), "max_g": scale,
+            "of_bar": float((diff / bound).max()),
+            "of_tensor_bar": float((diff / (
+                TRAIN_GRAD_RTOL * torch.abs(c) + TRAIN_GRAD_ATOL * scale
+                + 1e-30)).max()),
+            "f64_" + dev.type: float((g_d[name] - g64[name]).abs().max()),
+            "f64_cpu": float((c - g64[name]).abs().max())}
+        if per_tensor[name]["of_bar"] > 1.0:
+            failures.append(f"gradient {name} off by {float(diff.max()):.3e}"
+                            f" (max |g| {scale:.3e}, of all {gscale:.3e}), "
+                            f"{per_tensor[name]['of_bar']:.3f} of its bar")
+    gaps["gradients"] = {"tensors": len(g_c), "max_g_all": gscale}
+    for key in ("of_bar", "of_tensor_bar"):
+        worst = max(per_tensor, key=lambda n: per_tensor[n][key])
+        gaps["gradients"]["worst_" + key] = {"tensor": worst,
+                                             **per_tensor[worst]}
+    log(f"[train] {dev.type} vs cpu, one step at batch "
+        f"{TRAIN_PARITY_BATCH}: {json.dumps(gaps)}")
+    log(f"[train] gradient gaps by tensor: {json.dumps(per_tensor)}")
+    return gaps, failures
+
+
+def train_phase(cfg, dev, root, *, config=None, epochs=TRAIN_EPOCHS,
+                characterize_clips=TRAIN_CHARACTERIZE_CLIPS,
+                characterize_frames=TRAIN_CHARACTERIZE_FRAMES):
+    """Phase 11, on the dataset phase's files in ``root`` (``data/`` and
+    ``bvh/``): cli/train.main for ``epochs`` epochs (every loss finite, the
+    last LOSS_WINDOW logged loss_total values' mean under the first's, no
+    attention launched), one step held to the CPU, then characterize
+    --gen-ckpt on the written checkpoint (its EMA served through the
+    kernel, exactly the launches its windows and frames imply).
+    ``config`` defaults to the port's own, which has the full widths.
+    Returns (result, float32 launches of the characterize call)."""
+    t_phase = time.perf_counter()
+    config = config or characterize.DEFAULT_CONFIG
+    data = os.path.join(root, "data")
+    work = os.path.join(root, "train")
+    os.makedirs(work)
+    reset_launches()
+    reset_peak_memory(dev)
+    with contextlib.chdir(work), timed_train_steps(dev) as (periods, host):
+        trainer, main_s, said = quiet(train_cli.main, [
+            "--config", config, "--data-dir", data, "--max-epochs",
+            str(epochs), "--device", dev.type])
+    peak_gb = peak_memory_gb(dev)
+    training_launches = all_launches()
+    check(not any(training_launches.values()),
+          f"train: attention kernels launched while training: "
+          f"{training_launches}")
+    model = os.path.join(work, trainer.config["name"])
+    metrics = read_metrics(os.path.join(model, "log", "train",
+                                        "metrics.jsonl"))
+    batch = int(trainer.config["batch_size"])
+    steps = trainer.step
+    check(steps == len(periods) and steps > STEP_WARMUP,
+          f"train: {steps} steps, {len(periods)} timed")
+    check(all(np.isfinite(v).all() for v in metrics.values()),
+          "train: a logged metric is not finite")
+    loss = metrics["gen/loss_total"]
+    check(len(loss) >= LOSS_WINDOW,
+          f"train: {len(loss)} logged losses, want {LOSS_WINDOW} or more")
+    first, last = np.mean(loss[:LOSS_WINDOW]), np.mean(loss[-LOSS_WINDOW:])
+    check(last < first, f"train: loss_total mean of the last {LOSS_WINDOW} "
+          f"logged values {last:.4f} is not under the first's {first:.4f}")
+    step_ms = float(np.median(periods[STEP_WARMUP:]))
+    host_ms = float(np.median(host[STEP_WARMUP:]))
+    epoch_s = [float(s) for s in EPOCH_LINE.findall(said)]
+    ckpt_path = train_ckpt.latest_checkpoint(os.path.join(model, "pth"))
+    check(ckpt_path is not None
+          and train_ckpt.epoch_from_path(ckpt_path) == epochs,
+          f"train: checkpoint {ckpt_path}")
+    log(f"[train] cli/train {epochs} epoch(s), {steps} steps at batch "
+        f"{batch}: step {step_ms:.2f} ms (median after {STEP_WARMUP}; host "
+        f"{host_ms:.2f} ms in the call), "
+        f"epoch wall {epoch_s} s, main() {main_s:.2f} s, peak "
+        f"{peak_gb:.2f} GB; loss_total first {LOSS_WINDOW} {first:.4f}, "
+        f"last {LOSS_WINDOW} {last:.4f}")
+
+    seed = int(trainer.config.get("manualSeed", 1777))
+    ds = MotionDataset(data, device=dev)
+    profile_result = profile_train_steps(trainer, ds, dev, seed)
+    log(f"[train] profile: {json.dumps(profile_result)}")
+    parity, failures = train_parity(get_config(config), ckpt_path, ds, dev,
+                                    seed)
+    del ds, trainer
+
+    src = os.path.join(work, "src")
+    os.makedirs(src)
+    for i in range(characterize_clips):
+        bvh.save(os.path.join(src, f"clip_{i:02d}.bvh"),
+                 make_mocha_bvh_data(T=characterize_frames, seed=4000 + i))
+    cha = os.path.join(root, "bvh", dataset_names(1)[0] + ".bvh")
+    out_dir = os.path.join(work, "characterized")
+    _, char_s, _, char_launches = run_cli(
+        ["--src-dir", src, "--cha", cha, "--gen-ckpt", ckpt_path,
+         "--random-init", "--norm", os.path.join(data, "norm.npz"),
+         "--device", dev.type, "--out", out_dir, "--config", config])
+    cha_windows = len(padded_window_indices(bvh.load(cha)["positions"]
+                                            .shape[0], 60, 1)[0])
+    want = (cli_expected_launches(cfg, [characterize_frames]
+                                  * characterize_clips)
+            + -(-cha_windows // 128) * cfg.encoder_depth)
+    check_launches(dev, char_launches == want,
+                   f"train characterize: {char_launches} float32 launches, "
+                   f"want {want}")
+    n_out = len(padded_window_indices(characterize_frames, 60, 1)[0])
+    outs = read_outputs(out_dir)
+    check(len(outs) == 3 * characterize_clips,
+          f"train characterize: {len(outs)} output files")
+    for f, d in outs.items():
+        check(d["rotations"].shape[0] == n_out
+              and np.isfinite(d["rotations"]).all()
+              and np.isfinite(d["positions"]).all(),
+              f"train characterize: {f} has {d['rotations'].shape[0]} "
+              f"frames (want {n_out}) or is not finite")
+    log(f"[train] characterize --gen-ckpt {os.path.basename(ckpt_path)} "
+        f"on {characterize_clips} clips: {char_s:.2f} s, {char_launches} "
+        "float32 launches; every output parses back finite with its frame "
+        "count")
+    result = {
+        "epochs": epochs, "steps": steps, "batch": batch,
+        "step_ms_median": step_ms,
+        "steps_per_s": 1e3 / step_ms, "samples_per_s": batch * 1e3 / step_ms,
+        "step_ms_range": [float(min(periods)), float(max(periods))],
+        "step_host_ms_median": host_ms,
+        "epoch_s": epoch_s, "train_main_s": main_s,
+        "peak_memory_gb": peak_gb,
+        "loss_total_first": float(first), "loss_total_last": float(last),
+        "logged_values": len(loss), "training_launches": training_launches,
+        "profile": profile_result, "parity": parity,
+        "characterize_s": char_s,
+        "characterize_float32_launches": char_launches,
+        "phase_s": time.perf_counter() - t_phase}
+    log(f"[train] {json.dumps(result)}")
+    check(not failures, "train parity: " + "; ".join(failures))
+    return result, char_launches
+
+
 def build_sources():
     """Every CUDA source of the port: one per tuned dtype, and the
     general kernel's."""
@@ -2027,7 +2437,10 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         dataset_result, dataset_launches = phase("dataset", dataset_phase,
                                                  cfg, dev, root)
-    no_general("dataset")
+        no_general("dataset")
+        train_result, train_launches = phase("train", train_phase, cfg, dev,
+                                             root)
+    no_general("train")
     log(f"[dataset] build {dataset_result['build_frames_per_s']:.1f} "
         f"frames/s ({dataset_result['frames']} frames, "
         f"{dataset_result['database_mb']:.1f} MB); encode "
@@ -2040,6 +2453,18 @@ def main():
         f"characterize {dataset_result['characterize_s']:.3f} s for "
         f"{dataset_result['characterize_frames']} frames; phase "
         f"{dataset_result['phase_s']:.1f} s; on {card}")
+    log(f"[train] steps/s {train_result['steps_per_s']:.3f}, samples/s "
+        f"{train_result['samples_per_s']:.1f} at batch "
+        f"{train_result['batch']} (median step "
+        f"{train_result['step_ms_median']:.2f} ms after {STEP_WARMUP}); on "
+        f"{card}")
+    log(f"[train] step peak memory {train_result['peak_memory_gb']:.2f} GB;"
+        f" on {card}")
+    log(f"[train] epoch wall {train_result['epoch_s']} s "
+        f"({train_result['steps']} steps); on {card}")
+    log(f"[train] loss_total mean of the first {LOSS_WINDOW} logged values "
+        f"{train_result['loss_total_first']:.4f}, of the last {LOSS_WINDOW} "
+        f"{train_result['loss_total_last']:.4f}; on {card}")
 
     def kernel_entry(name, rows, edge, source, launches_by_path,
                      main_launches, design, shape="decoder streams"):
@@ -2064,7 +2489,10 @@ def main():
         kernel_entry("attention", attn_rows, edge_max_abs, attention.SOURCE,
                      {"slice": launches, "cli": cli_launches,
                       "multi": multi_launches, "live": live_launches,
-                      "dataset": dataset_launches},
+                      "dataset": dataset_launches,
+                      "train_steps": train_result["training_launches"][
+                          "launches"],
+                      "train_characterize": train_launches},
                      launches, DESIGN),
         kernel_entry("attention_bf16", bf16_rows, bf16_edge_max_abs,
                      attention.SOURCE_BF16,

@@ -49,7 +49,7 @@ DEFAULT_CONFIG = os.path.join(
     "configs", "config.yaml")
 
 
-def _require_pt(path: str, flag: str, suffixes=(".pt",)) -> None:
+def _require_checkpoint(path: str, flag: str, suffixes=(".pt",)) -> None:
     if not path.endswith(suffixes):
         raise SystemExit(
             f"{flag} {path}: only {' and '.join(suffixes)} checkpoints are "
@@ -59,7 +59,7 @@ def _require_pt(path: str, flag: str, suffixes=(".pt",)) -> None:
 
 def load_generator(args, cfg: GeneratorConfig, dev):
     if args.gen_ckpt:
-        _require_pt(args.gen_ckpt, "--gen-ckpt", (".pt", checkpoint.SUFFIX))
+        _require_checkpoint(args.gen_ckpt, "--gen-ckpt", (".pt", checkpoint.SUFFIX))
         if args.gen_ckpt.endswith(checkpoint.SUFFIX):
             return load_trained_generator(args.gen_ckpt, cfg, device=dev)
         return convert.load_reference_generator_checkpoint(
@@ -71,7 +71,7 @@ def load_generator(args, cfg: GeneratorConfig, dev):
 
 def load_cvae(args, cvae_cfg: CVAEConfig, dev):
     if args.cvae_ckpt:
-        _require_pt(args.cvae_ckpt, "--cvae-ckpt")
+        _require_checkpoint(args.cvae_ckpt, "--cvae-ckpt")
         return convert.cvae_from_torch(
             convert.load_torch_file(args.cvae_ckpt), cvae_cfg, device=dev)
     if args.random_init:

@@ -205,17 +205,8 @@ class GeneratorTrainer:
             steps_per_epoch=steps_per_epoch)
         self.step = 0
 
-    def set_weights(self, gen_state: Dict, prj_state: Dict) -> None:
-        """Start from these weights: the generator (and its EMA) and the
-        projector take them; the optimizer must not have stepped yet."""
-        if self.step:
-            raise RuntimeError("set_weights: the trainer has already stepped")
-        with torch.no_grad():
-            self.gen.load_state_dict(gen_state)
-            self.gen_ema.load_state_dict(gen_state)
-            self.prj.load_state_dict(prj_state)
-
-    def _on_device(self, tree: Dict) -> Dict:
+    def on_device(self, tree: Dict) -> Dict:
+        """Each array or tensor of ``tree`` on the trainer's device."""
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in tree.items()}
 
@@ -229,8 +220,8 @@ class GeneratorTrainer:
         metrics as 0-d device tensors."""
         self.opt.zero_grad(set_to_none=True)
         total, metrics = compute_gen_loss(
-            self.gen, self.prj, self.prj_cfg, self._on_device(batch_src),
-            self._on_device(batch_cha), self._on_device(norm), self.parents,
+            self.gen, self.prj, self.prj_cfg, self.on_device(batch_src),
+            self.on_device(batch_cha), self.on_device(norm), self.parents,
             self.weights, generator if self.train_forwards else None,
             loss_dtype=self.loss_dtype, compute_dtype=self.compute_dtype,
             remat=self.remat)

@@ -22,8 +22,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import torch  # noqa: E402
-from torch.autograd import DeviceType  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from mocha_sigasia2023_torch.data.synthetic import make_mocha_bvh_data  # noqa: E402
@@ -38,39 +36,6 @@ from mocha_sigasia2023_torch.runtime.stream import make_batch_runner  # noqa: E4
 # of the runner's ~1,350 ops a frame, and every frame runs the same step, so
 # 60 frames show the per-frame mix in a quarter of the time and trace.
 PROFILED_FRAMES = 60
-
-
-def device_time_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
-def profiled(fn):
-    """Run fn under the profiler; return (result, wall s, kernel rows)."""
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # kernel events only: the aten ops that launch them carry the same
-    # device time again
-    rows = [(e.key, device_time_us(e), e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and device_time_us(e) > 0]
-    return out, wall, rows, prof
-
-
-def summarize(stage, wall, rows):
-    kernel_us = sum(us for _, us, _ in rows)
-    top = sorted(rows, key=lambda r: -r[1])[:12]
-    return {"stage": stage, "wall_s": wall, "device_kernel_s": kernel_us / 1e6,
-            "device_idle_share": 1.0 - kernel_us / 1e6 / wall,
-            "top_kernels": [{"name": k[:90], "device_ms": us / 1e3,
-                             "calls": n} for k, us, n in top]}
 
 
 def main():
@@ -98,8 +63,9 @@ def main():
 
     frame0, xs = featurize()                       # warm-up
     runner(frame0, xs, gen_rng)
-    (frame0, xs), w_feat, rows_feat, _ = profiled(featurize)
-    _, w_run, rows_run, prof = profiled(lambda: runner(frame0, xs, gen_rng))
+    (frame0, xs), w_feat, rows_feat, _ = cs.profiled(featurize)
+    _, w_run, rows_run, prof = cs.profiled(
+        lambda: runner(frame0, xs, gen_rng))
 
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "torch_slice_profile.txt"),
@@ -108,8 +74,8 @@ def main():
             sort_by="self_cuda_time_total", row_limit=60))
     result = {"card": cs.card_line(), "streams": cs.STREAMS,
               "frames": PROFILED_FRAMES,
-              "stages": [summarize("featurize+encode", w_feat, rows_feat),
-                         summarize("stream runner", w_run, rows_run)],
+              "stages": [cs.summarize("featurize+encode", w_feat, rows_feat),
+                         cs.summarize("stream runner", w_run, rows_run)],
               "runner_ms_per_frame": 1e3 * w_run / PROFILED_FRAMES}
     print(json.dumps(result))
     return 0

@@ -1,12 +1,13 @@
 """The CUDA build's cache key: a library is named by the hash of its source,
 every local header the source includes, and the compiler flags, so an
 edited header rebuilds instead of loading a stale library.  Also
-chip_smoke.py's build list and the launch counts its ``kernels (general)``
-and ``dataset`` phases expect, computed from the config and checked
-against the launches those phases make when rehearsed on the CPU at small
-widths, and the velocity bar of its dataset parity.  Nothing here needs
-nvcc."""
+chip_smoke.py's build list and the launch counts its ``kernels (general)``,
+``dataset`` and ``train`` phases expect, computed from the config and
+checked against the launches those phases make when rehearsed on the CPU
+at small widths, and the velocity bar of its dataset parity.  Nothing here
+needs nvcc."""
 
+import contextlib
 import dataclasses
 import importlib.util
 import os
@@ -17,9 +18,13 @@ import numpy as np
 import pytest
 import torch
 
+from mocha_sigasia2023_torch.cli import generate_database
+from mocha_sigasia2023_torch.data.synthetic import make_mocha_bvh_data
+from mocha_sigasia2023_torch.io import bvh
 from mocha_sigasia2023_torch.models import layers
 from mocha_sigasia2023_torch.models.generator import GeneratorConfig
 from mocha_sigasia2023_torch.ops import attention, build
+from mocha_sigasia2023_torch.utils import get_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -363,3 +368,41 @@ def test_velocity_bar_follows_the_positions_gap(smoke):
     a["bone_velocities"][60, 1, 2] += 3e-4
     errs, ok = smoke.velocity_parity(a, b)
     assert not ok and errs["residual"] > smoke.FEAT_ATOL, errs
+
+
+def test_train_phase_rehearses_on_the_cpu(counted, tmp_path):
+    """The train phase at small widths on the CPU (3 clips of 140 frames:
+    30 windows, 7 steps an epoch at batch 4, two epochs): every loss
+    finite and falling, no attention launched while training, one step
+    held to the CPU, and characterize --gen-ckpt on the written checkpoint
+    with exactly the tuned launches its windows and frames imply."""
+    import yaml
+
+    widths = dict(SMALL, encoder_dim_head=64, decoder_dim_head=64)
+    config = get_config(os.path.join(REPO, "mocha_sigasia2023_torch",
+                                     "configs", "config.yaml"))
+    config["model"].update(widths, prj_dim=64)
+    config["cvae"].update(CVAE_SMALL)
+    config.update(batch_size=4, log_every=1)
+    path = tmp_path / "config.yaml"
+    path.write_text(yaml.safe_dump(config))
+    root = tmp_path / "run"
+    (root / "bvh").mkdir(parents=True)
+    for i, name in enumerate(counted.dataset_names(3)):
+        bvh.save(str(root / "bvh" / f"{name}.bvh"),
+                 make_mocha_bvh_data(T=140, seed=3000 + i))
+    with contextlib.redirect_stdout(None):
+        generate_database.main(["--bvh-dir", str(root / "bvh"), "--out",
+                                str(root / "data"), "--device", "cpu"])
+    cfg = GeneratorConfig(**widths)
+    result, launches = counted.train_phase(
+        cfg, torch.device("cpu"), str(root), config=str(path), epochs=2,
+        characterize_clips=2, characterize_frames=100)
+    assert result["steps"] == 14 and result["logged_values"] == 14
+    assert result["training_launches"] == {
+        "launches": 0, "launches_bf16": 0, "launches_general": 0}
+    assert result["loss_total_last"] < result["loss_total_first"]
+    # 2 clips x 85 windows in one encoder chunk, 85 frames of 2 decodes
+    # (1 on frame 0), the 125-window character in one chunk
+    assert launches == 2 + (84 * 2 + 1) + 1
+    assert result["parity"]["gradients"]["tensors"] == 47

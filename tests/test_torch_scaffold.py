@@ -43,7 +43,9 @@ def test_import_loads_no_jax():
     for m in ("runtime.stream", "runtime.export", "runtime.live",
               "runtime.matching", "cli.characterize", "io.bvh",
               "utils.config", "cli.generate_database",
-              "cli.collect_features", "io.database"):
+              "cli.collect_features", "io.database", "cli.train",
+              "train.trainer", "train.losses", "train.checkpoint",
+              "kinematics.xform", "models.projector", "utils.logging"):
         assert "mocha_sigasia2023_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
@@ -82,7 +84,7 @@ def test_sources_import_no_jax():
     # chip_smoke.py drives the general kernel and the dataset path too
     smoke = open(files[0]).read()
     for phase in ('"kernels (general)", general_phase',
-                  '"dataset", dataset_phase'):
+                  '"dataset", dataset_phase', '"train", train_phase'):
         assert phase in smoke, phase
     for path in files:
         for name in _imported_names(path):
@@ -162,6 +164,12 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stream.make_batch_runner(gen, None, None, None,
                                  multi_character=True)
+    from mocha_sigasia2023_torch.cli import train
+    from mocha_sigasia2023_torch.train.trainer import GeneratorTrainer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GeneratorTrainer({}, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main([])
     bvh.save(str(tmp_path / "c.bvh"), clip)
     out = tmp_path / "out"
     with pytest.raises(RuntimeError, match="no CUDA device"):

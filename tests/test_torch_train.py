@@ -111,11 +111,12 @@ def port_trainer(init, **extra):
     """A port trainer starting from the JAX params ``init``."""
     t = ttrainer.GeneratorTrainer(dict(SMALL_CONFIG, **extra),
                                   steps_per_epoch=100, device="cpu")
-    t.set_weights(
-        convert.generator_from_jax(init["gen"], t.gen_cfg,
-                                   device="cpu").state_dict(),
-        convert.projector_from_jax(init["prj"], t.prj_cfg,
-                                   device="cpu").state_dict())
+    gen = convert.generator_from_jax(init["gen"], t.gen_cfg, device="cpu")
+    with torch.no_grad():
+        t.gen.load_state_dict(gen.state_dict())
+        t.gen_ema.load_state_dict(gen.state_dict())
+        t.prj.load_state_dict(convert.projector_from_jax(
+            init["prj"], t.prj_cfg, device="cpu").state_dict())
     return t
 
 
