@@ -161,11 +161,18 @@ def gelu(x):
 def mean_variance_norm(x, eps=1e-5):
     """Instance norm over tokens (axis -2) per channel for (..., s, c)
     inputs, with the Bessel-corrected variance and eps added to the std
-    (not F.instance_norm, whose variance is biased)."""
+    (not F.instance_norm, whose variance is biased).  The variance is taken
+    of the centered tokens, as ``jnp.var`` takes it: then the gradient sums
+    to zero over the tokens up to rounding, as the exact one does.  From
+    ``x`` itself, var's backward scales ``x - mean`` by the variance's
+    gradient, and the rounding of that mean (larger on a GPU's reduction
+    than on the CPU's) leaves a sum over the tokens that a per-channel
+    shift upstream (AdaIN's beta) collects."""
     n = x.shape[-2]
-    mean = x.mean(dim=-2, keepdim=True)
-    var = x.var(dim=-2, keepdim=True, correction=0) * (n / max(n - 1, 1))
-    return (x - mean) / (safe_sqrt(var) + eps)
+    centered = x - x.mean(dim=-2, keepdim=True)
+    var = centered.var(dim=-2, keepdim=True, correction=0) * (
+        n / max(n - 1, 1))
+    return centered / (safe_sqrt(var) + eps)
 
 
 def conv1x1(p, x):

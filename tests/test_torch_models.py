@@ -76,6 +76,25 @@ def test_primitives():
            jl.mean_variance_norm(jnp.asarray(const)), LAYER_TOL)
 
 
+def test_mean_variance_norm_gradient_sums_to_zero_over_tokens():
+    """Tokens far off zero with a small spread (an offset of 6, a spread of
+    0.05, 90 tokens, float32), as the decoder's AdaIN feeds its attention:
+    the exact gradient of mean_variance_norm sums to zero over the tokens.
+    The port's float32 sum stays within 90 float32 spacings of the largest
+    gradient, and its gradient matches jax.grad of the JAX layer."""
+    x = 6.0 + 0.05 * _x(7, 8, 90, 256)
+    w = _x(8, 8, 90, 256)
+    xt = torch.as_tensor(x).requires_grad_(True)
+    (tl.mean_variance_norm(xt) * torch.as_tensor(w)).sum().backward()
+    g = xt.grad.numpy()
+    jg = np.asarray(jax.grad(lambda a: jnp.sum(
+        jl.mean_variance_norm(a) * jnp.asarray(w)))(jnp.asarray(x)))
+    scale = float(np.abs(jg).max())
+    np.testing.assert_allclose(g, jg, rtol=1e-4, atol=1e-5 * scale)
+    bar = 90 * np.finfo(np.float32).eps * scale
+    assert float(np.abs(g.astype(np.float64).sum(axis=1)).max()) <= bar
+
+
 @torch.no_grad()
 def test_convolutions_and_stgcn_block():
     x = _x(3, 2, 16, 60, 24)
