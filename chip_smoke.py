@@ -158,8 +158,6 @@ from mocha_sigasia2023_torch.io import bvh  # noqa: E402
 from mocha_sigasia2023_torch.models.cvae import CVAEConfig, init_cvae  # noqa: E402
 from mocha_sigasia2023_torch.models.generator import (  # noqa: E402
     GeneratorConfig, content_feature, init_generator)
-from mocha_sigasia2023_torch.models.projector import (  # noqa: E402
-    apply_projector)
 from mocha_sigasia2023_torch.ops import attention, build  # noqa: E402
 from mocha_sigasia2023_torch.runtime import export  # noqa: E402
 from mocha_sigasia2023_torch.runtime import features as rtf  # noqa: E402
@@ -169,8 +167,6 @@ from mocha_sigasia2023_torch.runtime.stream import (  # noqa: E402
     build_consts, cast_database, make_batch_runner, stack_consts,
     stack_stream_inputs)
 from mocha_sigasia2023_torch.train import checkpoint as train_ckpt  # noqa: E402
-from mocha_sigasia2023_torch.train.losses import (  # noqa: E402
-    convert_YtilToX, patch_nce_loss)
 from mocha_sigasia2023_torch.train.trainer import (  # noqa: E402
     GeneratorTrainer)
 from mocha_sigasia2023_torch.utils import get_config  # noqa: E402
@@ -1979,7 +1975,10 @@ LOSS_WINDOW = 5              # logged values averaged at each end of the run
 STEP_WARMUP = 5              # steps left out of the step-time median
 TRAIN_PARITY_BATCH = 8
 TRAIN_LOSS_RTOL = 1e-4       # GPU vs CPU, one step
-TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-3, 1e-5   # atol x the model's max |g|
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-3, 1e-5   # atol x the tensor's max |g|
+TRAIN_GRAD_VANISH = 1e-6     # float64 max |g| under this x the model's: the
+                             # tensor's exact gradient vanishes
+TRAIN_F64_RATIO = 8.0        # the card's distance to float64 over the CPU's
 TRAIN_LOSSES = ("gen/loss_total", "gen/loss_recon", "gen/loss_nce_cnt",
                 "gen/loss_cyc")
 TRAIN_ACCURACIES = {"gen/cnt_acc_top1": 1, "gen/cnt_acc_top5": 5}
@@ -2059,30 +2058,6 @@ def read_metrics(path):
     return {k: [v for _, v in sorted(vals)] for k, vals in out.items()}
 
 
-def nce_logits(t, bs, bc, norm):
-    """The PatchNCE logits of compute_gen_loss's feature pass for this
-    trainer, batch and norm (no dropout): what its top-k accuracies
-    rank."""
-    bs, bc, norm = t.on_device(bs), t.on_device(bc), t.on_device(norm)
-    X_mean, X_std = norm["X_mean"][None, None], norm["X_std"][None, None]
-
-    def norm_x(X):
-        return (X[:, :, 1:] - X_mean[:, :, 1:]) / X_std[:, :, 1:]
-
-    with torch.no_grad():
-        src_in, cha_in = norm_x(bs["X"]), norm_x(bc["X"])
-        trans = t.gen(src_in, cha_in, train=True)
-        trans = trans * norm["Y_std"][None, None, 1:] \
-            + norm["Y_mean"][None, None, 1:]
-        trans_in = norm_x(convert_YtilToX(trans, bs["Y"][:, :, 0:1],
-                                          t.parents))
-        _, _, src_cnt, trans_cnt = t.gen(src_in, trans_in, train=True,
-                                         extract_feature=True)
-        feat_k, pid = apply_projector(t.prj, t.prj_cfg, trans_cnt)
-        feat_q, _ = apply_projector(t.prj, t.prj_cfg, src_cnt, pid)
-        return patch_nce_loss(feat_q, feat_k)[1].cpu()
-
-
 def near_ties(logits, k, tol):
     """Rows whose positive logit (column 0) lies within ``tol`` of the k-th
     largest negative: rows whose top-k hit a rounding of the logits within
@@ -2113,10 +2088,11 @@ def train_parity(config, ckpt_path, ds, dev, seed):
     """One train_step of the checkpoint's weights on ``dev`` and on the CPU
     on the same batch (dropout off): the losses within TRAIN_LOSS_RTOL,
     the gradients before the clip within TRAIN_GRAD_RTOL / TRAIN_GRAD_ATOL
-    x the model's largest |g|, the NCE logits within TRAIN_LOSS_RTOL of
-    the largest positive, each top-k accuracy within the share of rows
-    that the logits' measured gap can flip; the stepped weights finite on
-    both.  Returns (gaps, the failures)."""
+    x each tensor's largest |g| and, against a float64 gradient, within
+    TRAIN_F64_RATIO x the CPU's distance; the NCE logits within
+    TRAIN_LOSS_RTOL of the largest positive, each top-k accuracy within
+    the share of rows that the logits' measured gap can flip; the stepped
+    weights finite on both.  Returns (gaps, the failures)."""
     batches = iterate_batches(ds, TRAIN_PARITY_BATCH, seed=seed)
     bs, bc = next(batches), next(batches)
     runs = {}
@@ -2124,12 +2100,12 @@ def train_parity(config, ckpt_path, ds, dev, seed):
         t = GeneratorTrainer(dict(config, dropout=False), 1, seed=seed,
                              device=d)
         t.load(ckpt_path)
-        metrics = {k: float(v) for k, v in t.backward(bs, bc,
-                                                      ds.norm).items()}
+        metrics, logits = t.backward(bs, bc, ds.norm)
+        metrics = {k: float(v) for k, v in metrics.items()}
         grads = {f"{part}.{n}": p.grad.detach().cpu()
                  for part, m in (("gen", t.gen), ("prj", t.prj))
                  for n, p in m.named_parameters()}
-        logits = nce_logits(t, bs, bc, ds.norm)
+        logits = logits.cpu()
         t.update()
         finite = all(bool(torch.isfinite(p).all()) for p in
                      (*t.gen.parameters(), *t.prj.parameters(),
@@ -2164,34 +2140,48 @@ def train_parity(config, ckpt_path, ds, dev, seed):
             failures.append(f"{name} {m_d[name]} on {dev.type}, {m_c[name]}"
                             f" on the CPU, over its bar {bar} ({ties} rows "
                             f"within {2 * noise:.3e} of a flip)")
-    # the bar's atol scales with the model's largest gradient, as the JAX
-    # package's own gradient comparison does (tests/test_train.py:210): a
-    # tensor whose exact gradient vanishes (decoder layer 0's ff.w2.bias,
-    # removed by layer 1's instance norm) or cancels carries only rounding
-    # on each device.  Beside it, each device's distance to a float64
-    # gradient on the CPU, and the bar scaled by the tensor's own largest.
+    # each tensor against the CPU within the bar scaled by its own largest
+    # |g|; a tensor whose float64 gradient vanishes (decoder layer 0's
+    # ff.w2.bias, removed by layer 1's instance norm) carries only rounding
+    # on both devices, and takes its atol from the model's largest |g|.  And
+    # no tensor's gradient farther from float64's than TRAIN_F64_RATIO x
+    # the CPU's distance, plus a float32 spacing at the tensor's scale.
     g64 = float64_gradients(config, ckpt_path, bs, bc, ds.norm, seed)
     gscale = max(float(c.abs().max()) for c in g_c.values())
+    gscale64 = max(float(g.abs().max()) for g in g64.values())
+    eps = float(torch.finfo(torch.float32).eps)
     per_tensor = {}
     for name, c in g_c.items():
+        scale, scale64 = float(c.abs().max()), float(g64[name].abs().max())
+        vanishes = scale64 < TRAIN_GRAD_VANISH * gscale64
         diff = torch.abs(g_d[name] - c)
-        bound = TRAIN_GRAD_RTOL * torch.abs(c) + TRAIN_GRAD_ATOL * gscale
-        scale = float(c.abs().max())
-        per_tensor[name] = {
+        bound = TRAIN_GRAD_RTOL * torch.abs(c) + TRAIN_GRAD_ATOL * (
+            gscale if vanishes else scale)
+        row = per_tensor[name] = {
             "max_abs": float(diff.max()), "max_g": scale,
+            "max_g_f64": scale64, "vanishes": vanishes,
             "of_bar": float((diff / bound).max()),
-            "of_tensor_bar": float((diff / (
-                TRAIN_GRAD_RTOL * torch.abs(c) + TRAIN_GRAD_ATOL * scale
-                + 1e-30)).max()),
             "f64_" + dev.type: float((g_d[name] - g64[name]).abs().max()),
             "f64_cpu": float((c - g64[name]).abs().max())}
-        if per_tensor[name]["of_bar"] > 1.0:
-            failures.append(f"gradient {name} off by {float(diff.max()):.3e}"
-                            f" (max |g| {scale:.3e}, of all {gscale:.3e}), "
-                            f"{per_tensor[name]['of_bar']:.3f} of its bar")
-    gaps["gradients"] = {"tensors": len(g_c), "max_g_all": gscale}
-    for key in ("of_bar", "of_tensor_bar"):
-        worst = max(per_tensor, key=lambda n: per_tensor[n][key])
+        row["f64_ratio"] = None if vanishes else (
+            row["f64_" + dev.type] / (row["f64_cpu"] + eps * scale64))
+        if row["of_bar"] > 1.0:
+            failures.append(f"gradient {name} off by {row['max_abs']:.3e} "
+                            f"(max |g| {scale:.3e}), {row['of_bar']:.3f} of "
+                            "its bar")
+        if not vanishes and row["f64_ratio"] > TRAIN_F64_RATIO:
+            failures.append(
+                f"gradient {name} {row['f64_' + dev.type]:.3e} from float64"
+                f" on {dev.type}, {row['f64_ratio']:.2f}x the CPU's "
+                f"{row['f64_cpu']:.3e}")
+    ratios = {n: r["f64_ratio"] for n, r in per_tensor.items()
+              if not r["vanishes"]}
+    gaps["gradients"] = {
+        "tensors": len(g_c), "max_g_all": gscale,
+        "vanishing": sorted(set(per_tensor) - set(ratios)),
+        "f64_ratio_median": float(np.median(list(ratios.values())))}
+    for key, among in (("of_bar", per_tensor), ("f64_ratio", ratios)):
+        worst = max(among, key=lambda n: per_tensor[n][key])
         gaps["gradients"]["worst_" + key] = {"tensor": worst,
                                              **per_tensor[worst]}
     log(f"[train] {dev.type} vs cpu, one step at batch "

@@ -20,7 +20,7 @@ and not acted on.
 from __future__ import annotations
 
 import copy
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,9 +98,11 @@ def compute_gen_loss(gen: Generator, prj, prj_cfg: ProjectorConfig,
                      batch_src, batch_cha, norm, parents, weights,
                      generator: Optional[torch.Generator] = None,
                      loss_dtype=None, compute_dtype=None, remat=False):
-    """The full generator objective.  Returns (total, metrics), 0-d tensors
-    on the device.  ``generator`` (None: no dropout) splits into the
-    forwards' streams as the JAX package splits its key."""
+    """The full generator objective.  Returns (total, metrics, logits): 0-d
+    tensors on the device, and the PatchNCE logits that the top-k
+    accuracies rank (positive in column 0).  ``generator`` (None: no
+    dropout) splits into the forwards' streams as the JAX package splits
+    its key."""
     X_mean, X_std = norm["X_mean"][None, None], norm["X_std"][None, None]
     Y_mean, Y_std = norm["Y_mean"][None, None], norm["Y_std"][None, None]
 
@@ -154,7 +156,7 @@ def compute_gen_loss(gen: Generator, prj, prj_cfg: ProjectorConfig,
         "gen/cnt_acc_top5": top5,
         "gen/loss_cyc": loss_cyc,
     }
-    return total, metrics
+    return total, metrics, logits
 
 
 def _dtype(name):
@@ -212,21 +214,21 @@ class GeneratorTrainer:
 
     def backward(self, batch_src: Dict, batch_cha: Dict, norm: Dict,
                  generator: Optional[torch.Generator] = None
-                 ) -> Dict[str, torch.Tensor]:
+                 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """The loss and its gradients, left in each parameter's ``.grad``
         (before the clip).  Batches and norm are arrays or tensors (moved
         to the device unless they are there); ``generator`` seeds the
         dropout masks (unused with ``dropout: false``).  Returns the
-        metrics as 0-d device tensors."""
+        metrics as 0-d device tensors and the PatchNCE logits, detached."""
         self.opt.zero_grad(set_to_none=True)
-        total, metrics = compute_gen_loss(
+        total, metrics, logits = compute_gen_loss(
             self.gen, self.prj, self.prj_cfg, self.on_device(batch_src),
             self.on_device(batch_cha), self.on_device(norm), self.parents,
             self.weights, generator if self.train_forwards else None,
             loss_dtype=self.loss_dtype, compute_dtype=self.compute_dtype,
             remat=self.remat)
         total.backward()
-        return {k: v.detach() for k, v in metrics.items()}
+        return {k: v.detach() for k, v in metrics.items()}, logits.detach()
 
     @torch.no_grad()
     def update(self) -> None:
@@ -253,7 +255,7 @@ class GeneratorTrainer:
                    ) -> Dict[str, torch.Tensor]:
         """One update: :meth:`backward`, then :meth:`update`.  The metrics
         stay on the device; reading one waits for the step."""
-        metrics = self.backward(batch_src, batch_cha, norm, generator)
+        metrics, _ = self.backward(batch_src, batch_cha, norm, generator)
         self.update()
         return metrics
 
@@ -296,10 +298,9 @@ class GeneratorTrainer:
 
 
 def load_generator(path: str, cfg: GeneratorConfig = GeneratorConfig(), *,
-                   use_ema: bool = True, device=None) -> Generator:
-    """The generator of a port trainer checkpoint, ready to serve: its EMA
-    unless ``use_ema`` is false."""
+                   device=None) -> Generator:
+    """The EMA generator of a port trainer checkpoint, ready to serve."""
     saved = ckpt.load_checkpoint(path)
     gen = Generator(cfg)
-    gen.load_state_dict(saved["gen_ema" if use_ema else "gen"])
+    gen.load_state_dict(saved["gen_ema"])
     return gen.requires_grad_(False).to(resolve_device(device)).eval()

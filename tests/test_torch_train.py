@@ -47,6 +47,7 @@ from mocha_sigasia2023_torch.data.synthetic import (  # noqa: E402
 from mocha_sigasia2023_torch.io import bvh  # noqa: E402
 from mocha_sigasia2023_torch.models import convert  # noqa: E402
 from mocha_sigasia2023_torch.train import checkpoint as tckpt  # noqa: E402
+from mocha_sigasia2023_torch.train import losses as tlosses  # noqa: E402
 from mocha_sigasia2023_torch.train import trainer as ttrainer  # noqa: E402
 from mocha_sigasia2023_torch.utils import config as tconfig  # noqa: E402
 from mocha_sigasia2023_torch.utils.logging import MetricsLogger  # noqa: E402
@@ -146,7 +147,7 @@ def test_compute_gen_loss_gradient_matches_jax(data, jax_trainer):
     (_, jm), jg = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         jax.tree.map(jnp.asarray, init))
     pt = port_trainer(init, dropout=False)
-    tm = pt.backward(bs, bc, ds.norm)
+    tm, _ = pt.backward(bs, bc, ds.norm)
     # the losses; the top-k accuracies count near-tied NCE logits at these
     # random weights (positive-to-negative gaps of ~1e-4 in logits of ~14),
     # which float32 rounding orders either way, so they are not compared
@@ -167,6 +168,20 @@ def test_compute_gen_loss_gradient_matches_jax(data, jax_trainer):
             np.testing.assert_allclose(
                 tgrads[part][k].grad.numpy(), g, rtol=1e-4,
                 atol=1e-5 * gscale, err_msg=f"{part}.{k}")
+
+
+def test_backward_returns_the_nce_logits_its_accuracies_rank(data,
+                                                             jax_trainer):
+    _, ds = data
+    _, init = jax_trainer
+    bs, bc = _batches(ds)[:2]
+    pt = port_trainer(init, dropout=False)
+    m, logits = pt.backward(bs, bc, ds.norm)
+    n = bs["X"].shape[0] * pt.gen_cfg.num_tokens
+    assert logits.shape == (n, n + 1) and not logits.requires_grad
+    top1, top5 = tlosses.contrastive_acc(logits)
+    assert float(top1) == float(m["gen/cnt_acc_top1"])
+    assert float(top5) == float(m["gen/cnt_acc_top5"])
 
 
 def test_three_steps_match_jax_trainer(data, jax_trainer):
@@ -218,7 +233,8 @@ def test_remat_step_equals_plain_step_with_dropout(data, jax_trainer):
     runs = []
     for remat in (False, True):
         t = port_trainer(init, dropout=True, remat=remat)
-        m = t.backward(bs, bc, ds.norm, torch.Generator().manual_seed(42))
+        m, _ = t.backward(bs, bc, ds.norm,
+                          torch.Generator().manual_seed(42))
         runs.append((m, _grads(t)))
     (m0, g0), (m1, g1) = runs
     for name in LOSSES:
@@ -230,7 +246,7 @@ def test_remat_step_equals_plain_step_with_dropout(data, jax_trainer):
                                    atol=1e-5 * gscale, err_msg=k)
     # dropout is on: another seed gives another loss
     t = port_trainer(init, dropout=True)
-    m2 = t.backward(bs, bc, ds.norm, torch.Generator().manual_seed(43))
+    m2, _ = t.backward(bs, bc, ds.norm, torch.Generator().manual_seed(43))
     assert float(m2["gen/loss_total"]) != float(m0["gen/loss_total"])
 
 
