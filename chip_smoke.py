@@ -142,7 +142,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
+from torch.overrides import TorchFunctionMode  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from mocha_sigasia2023_torch.cli import (  # noqa: E402
@@ -2066,9 +2068,61 @@ def near_ties(logits, k, tol):
     return int((torch.abs(logits[:, 0] - kth) <= tol).sum())
 
 
-def float64_gradients(config, ckpt_path, bs, bc, norm, seed):
+class _SignedAbs(torch.autograd.Function):
+    """|x| whose gradient is grad * s for the given signs s."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.save_for_backward(s)
+        return x.abs()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.saved_tensors[0], None
+
+
+class PinnedChoices(TorchFunctionMode):
+    """Within the block, each piecewise choice a forward makes (the sign of
+    every torch.abs input: the L1 losses; the condition of every
+    torch.where: leaky ReLU and the kinematics' branches; the mask of
+    every ReLU) is recorded, in call order, or with ``choices`` replayed
+    from another run; ``flips`` counts the elements whose own choice the
+    replay overrode.  An element within rounding of a kink may fall on
+    either side on two devices, and an L1 term's side moves that element's
+    gradient by 2 w / N: with the choices pinned, two runs' gradients
+    differ by rounding alone."""
+
+    def __init__(self, choices=None):
+        super().__init__()
+        self.replay, self.choices, self.flips = choices, [], 0
+
+    def choose(self, own):
+        if self.replay is None:
+            self.choices.append(own.cpu())
+            return own
+        pinned = self.replay[len(self.choices)].to(own.device)
+        self.choices.append(pinned)
+        self.flips += int((pinned != own).sum())
+        return pinned
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in (torch.abs, torch.Tensor.abs):
+            x = args[0]
+            s = self.choose(torch.sign(x.detach()).to(torch.int8))
+            return _SignedAbs.apply(x, s.to(x.dtype))
+        if func is torch.where and len(args) == 3:
+            return func(self.choose(args[0]), *args[1:])
+        if func in (torch.relu, F.relu):
+            x = args[0]
+            return x * self.choose(x.detach() > 0).to(x.dtype)
+        return func(*args, **kwargs)
+
+
+def float64_gradients(config, ckpt_path, bs, bc, norm, seed, choices):
     """The gradients of the checkpoint's weights on this batch, in float64
-    on the CPU (dropout off): what both float32 runs approximate."""
+    on the CPU (dropout off), at the piecewise ``choices`` of another run:
+    what both float32 runs approximate.  Returns (gradients, flips)."""
     t = GeneratorTrainer(dict(config, dropout=False), 1, seed=seed,
                          device="cpu")
     t.load(ckpt_path)
@@ -2078,10 +2132,11 @@ def float64_gradients(config, ckpt_path, bs, bc, norm, seed):
     def f64(tree):
         return {k: np.asarray(v, np.float64) for k, v in tree.items()}
 
-    t.backward(f64(bs), f64(bc), f64(norm))
+    with PinnedChoices(choices) as pin:
+        t.backward(f64(bs), f64(bc), f64(norm))
     return {f"{part}.{n}": p.grad.detach()
             for part, m in (("gen", t.gen), ("prj", t.prj))
-            for n, p in m.named_parameters()}
+            for n, p in m.named_parameters()}, pin.flips
 
 
 def train_parity(config, ckpt_path, ds, dev, seed):
@@ -2095,12 +2150,14 @@ def train_parity(config, ckpt_path, ds, dev, seed):
     weights finite on both.  Returns (gaps, the failures)."""
     batches = iterate_batches(ds, TRAIN_PARITY_BATCH, seed=seed)
     bs, bc = next(batches), next(batches)
-    runs = {}
+    runs, choices, flips = {}, None, {}
     for d in dict.fromkeys([dev, torch.device("cpu")]):
         t = GeneratorTrainer(dict(config, dropout=False), 1, seed=seed,
                              device=d)
         t.load(ckpt_path)
-        metrics, logits = t.backward(bs, bc, ds.norm)
+        with PinnedChoices(choices) as pin:
+            metrics, logits = t.backward(bs, bc, ds.norm)
+        choices, flips[d.type] = pin.choices, pin.flips
         metrics = {k: float(v) for k, v in metrics.items()}
         grads = {f"{part}.{n}": p.grad.detach().cpu()
                  for part, m in (("gen", t.gen), ("prj", t.prj))
@@ -2140,13 +2197,19 @@ def train_parity(config, ckpt_path, ds, dev, seed):
             failures.append(f"{name} {m_d[name]} on {dev.type}, {m_c[name]}"
                             f" on the CPU, over its bar {bar} ({ties} rows "
                             f"within {2 * noise:.3e} of a flip)")
-    # each tensor against the CPU within the bar scaled by its own largest
-    # |g|; a tensor whose float64 gradient vanishes (decoder layer 0's
+    # the CPU and the float64 runs replay the card's piecewise choices (an
+    # L1 residual or a leaky ReLU input within rounding of zero may fall on
+    # either side; ``flips`` counts them).  Each tensor against the CPU
+    # within the bar scaled by its own largest |g|; a tensor whose float64
+    # gradient vanishes (decoder layer 0's
     # ff.w2.bias, removed by layer 1's instance norm) carries only rounding
     # on both devices, and takes its atol from the model's largest |g|.  And
     # no tensor's gradient farther from float64's than TRAIN_F64_RATIO x
     # the CPU's distance, plus a float32 spacing at the tensor's scale.
-    g64 = float64_gradients(config, ckpt_path, bs, bc, ds.norm, seed)
+    g64, flips["float64"] = float64_gradients(config, ckpt_path, bs, bc,
+                                              ds.norm, seed, choices)
+    gaps["pinned_choices"] = {"elements": sum(c.numel() for c in choices),
+                              "flips": flips}
     gscale = max(float(c.abs().max()) for c in g_c.values())
     gscale64 = max(float(g.abs().max()) for g in g64.values())
     eps = float(torch.finfo(torch.float32).eps)

@@ -334,6 +334,31 @@ def test_dataset_phase_launches_what_it_expects(counted, tmp_path):
     assert result["characterize_frames"] == 2 * 125
 
 
+def test_pinned_choices_replay_a_runs_kinks(smoke):
+    """chip_smoke.PinnedChoices records each torch.abs sign, torch.where
+    condition and ReLU mask of one run; a replay on inputs that fall on
+    the other side of a kink takes the recorded side, counts the flips,
+    and its gradient is the recorded run's."""
+    from mocha_sigasia2023_torch.models.layers import leaky_relu
+
+    def loss(x):
+        return (torch.abs(x).sum() + leaky_relu(x, 0.2).sum()
+                + torch.nn.functional.relu(x).sum())
+
+    def grad(x, choices=None):
+        x = torch.tensor(x, dtype=torch.float64, requires_grad=True)
+        with smoke.PinnedChoices(choices) as pin:
+            loss(x).backward()
+        return x.grad.tolist(), pin
+
+    first, pin = grad([1e-9, -1.0, 2.0])
+    assert first == [1 + 1 + 1, -1 + 0.2 + 0, 1 + 1 + 1]
+    own, _ = grad([-1e-9, -1.0, 2.0])
+    assert own == [-1 + 0.2 + 0, -1 + 0.2 + 0, 1 + 1 + 1]
+    replayed, again = grad([-1e-9, -1.0, 2.0], pin.choices)
+    assert replayed == first and again.flips == 3
+
+
 def test_velocity_bar_follows_the_positions_gap(smoke):
     """chip_smoke's velocity parity: implied_velocity_gap is featurize's
     central difference of the positions' gap, range by range, so two
