@@ -1980,7 +1980,8 @@ TRAIN_LOSS_RTOL = 1e-4       # GPU vs CPU, one step
 TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-3, 1e-5   # atol x the tensor's max |g|
 TRAIN_GRAD_VANISH = 1e-6     # float64 max |g| under this x the model's: the
                              # tensor's exact gradient vanishes
-TRAIN_F64_RATIO = 8.0        # the card's distance to float64 over the CPU's
+TRAIN_F64_RATIO = 8.0        # a tensor's (card / CPU distance to float64)
+                             # over that ratio's median across the tensors
 TRAIN_LOSSES = ("gen/loss_total", "gen/loss_recon", "gen/loss_nce_cnt",
                 "gen/loss_cyc")
 TRAIN_ACCURACIES = {"gen/cnt_acc_top1": 1, "gen/cnt_acc_top5": 5}
@@ -2143,8 +2144,9 @@ def train_parity(config, ckpt_path, ds, dev, seed):
     """One train_step of the checkpoint's weights on ``dev`` and on the CPU
     on the same batch (dropout off): the losses within TRAIN_LOSS_RTOL,
     the gradients before the clip within TRAIN_GRAD_RTOL / TRAIN_GRAD_ATOL
-    x each tensor's largest |g| and, against a float64 gradient, within
-    TRAIN_F64_RATIO x the CPU's distance; the NCE logits within
+    x each tensor's largest |g| and, against a float64 gradient, no
+    tensor out of line with the rest: its card-to-CPU distance ratio
+    within TRAIN_F64_RATIO x the ratios' median; the NCE logits within
     TRAIN_LOSS_RTOL of the largest positive, each top-k accuracy within
     the share of rows that the logits' measured gap can flip; the stepped
     weights finite on both.  Returns (gaps, the failures)."""
@@ -2201,11 +2203,13 @@ def train_parity(config, ckpt_path, ds, dev, seed):
     # L1 residual or a leaky ReLU input within rounding of zero may fall on
     # either side; ``flips`` counts them).  Each tensor against the CPU
     # within the bar scaled by its own largest |g|; a tensor whose float64
-    # gradient vanishes (decoder layer 0's
-    # ff.w2.bias, removed by layer 1's instance norm) carries only rounding
-    # on both devices, and takes its atol from the model's largest |g|.  And
-    # no tensor's gradient farther from float64's than TRAIN_F64_RATIO x
-    # the CPU's distance, plus a float32 spacing at the tensor's scale.
+    # gradient vanishes (decoder layer 0's ff.w2.bias, removed by layer 1's
+    # instance norm) carries only rounding on both devices, and takes its
+    # atol from the model's largest |g|.  Against float64, each tensor's
+    # card distance over the CPU's (plus a float32 spacing at its scale):
+    # the card's float32 sums may be uniformly less exact than the CPU's,
+    # by a factor that moves with the kernels it picks, so a tensor fails
+    # when its ratio exceeds TRAIN_F64_RATIO x the ratios' median.
     g64, flips["float64"] = float64_gradients(config, ckpt_path, bs, bc,
                                               ds.norm, seed, choices)
     gaps["pinned_choices"] = {"elements": sum(c.numel() for c in choices),
@@ -2232,17 +2236,20 @@ def train_parity(config, ckpt_path, ds, dev, seed):
             failures.append(f"gradient {name} off by {row['max_abs']:.3e} "
                             f"(max |g| {scale:.3e}), {row['of_bar']:.3f} of "
                             "its bar")
-        if not vanishes and row["f64_ratio"] > TRAIN_F64_RATIO:
-            failures.append(
-                f"gradient {name} {row['f64_' + dev.type]:.3e} from float64"
-                f" on {dev.type}, {row['f64_ratio']:.2f}x the CPU's "
-                f"{row['f64_cpu']:.3e}")
     ratios = {n: r["f64_ratio"] for n, r in per_tensor.items()
               if not r["vanishes"]}
+    median = float(np.median(list(ratios.values())))
+    for name, ratio in ratios.items():
+        if ratio > TRAIN_F64_RATIO * median:
+            failures.append(
+                f"gradient {name} {per_tensor[name]['f64_' + dev.type]:.3e}"
+                f" from float64 on {dev.type}, {ratio:.2f}x the CPU's "
+                f"{per_tensor[name]['f64_cpu']:.3e}, over "
+                f"{TRAIN_F64_RATIO} x the median ratio {median:.3f}")
     gaps["gradients"] = {
         "tensors": len(g_c), "max_g_all": gscale,
         "vanishing": sorted(set(per_tensor) - set(ratios)),
-        "f64_ratio_median": float(np.median(list(ratios.values())))}
+        "f64_ratio_median": median}
     for key, among in (("of_bar", per_tensor), ("f64_ratio", ratios)):
         worst = max(among, key=lambda n: per_tensor[n][key])
         gaps["gradients"]["worst_" + key] = {"tensor": worst,
