@@ -105,11 +105,14 @@ Phases (any failure exits non-zero; each prints its wall time):
      call, the epoch wall and peak memory printed on lines of their own; 3
      more steps under torch.profiler (kernel time, idle share, launches).
      Then one step of the checkpoint's weights on the card and on the CPU
-     on the same batch of 8 (dropout off): losses within rtol 1e-4, NCE
-     logits within 1e-4 of the largest positive, each top-k accuracy
-     within the rows their measured gap can flip, gradients before the
-     clip within rtol 1e-3 / atol 1e-5 x the model's largest (each
-     tensor's distance to a float64 CPU gradient printed beside it).
+     on the same batch of 8 (dropout off), in float32 and in float64, at
+     the card's piecewise choices: losses within rtol 1e-4, NCE logits
+     within 1e-4 of the largest positive, each top-k accuracy within the
+     rows their measured gap can flip, gradients before the clip within
+     rtol 1e-3 / atol 1e-5 x each tensor's largest; in float32 wherever
+     the CPU's float32 lies within 1/9 of that bar from float64, and
+     always in float64 at a bar 1e-3 of it; no tensor's card-to-CPU
+     distance ratio to float64 over 8 x max(1, the median).
      Then characterize --gen-ckpt on the written checkpoint (4 clips of
      240 frames): its EMA served through the tuned fp32 kernel, exactly
      the launches its windows and frames imply, every output parsed back
@@ -158,6 +161,7 @@ from mocha_sigasia2023_torch.data.windows import (  # noqa: E402
     full_window_indices, padded_window_indices, window_features)
 from mocha_sigasia2023_torch.io import bvh  # noqa: E402
 from mocha_sigasia2023_torch.models.cvae import CVAEConfig, init_cvae  # noqa: E402
+from mocha_sigasia2023_torch.models import layers  # noqa: E402
 from mocha_sigasia2023_torch.models.generator import (  # noqa: E402
     GeneratorConfig, content_feature, init_generator)
 from mocha_sigasia2023_torch.ops import attention, build  # noqa: E402
@@ -1981,7 +1985,11 @@ TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-3, 1e-5   # atol x the tensor's max |g|
 TRAIN_GRAD_VANISH = 1e-6     # float64 max |g| under this x the model's: the
                              # tensor's exact gradient vanishes
 TRAIN_F64_RATIO = 8.0        # a tensor's (card / CPU distance to float64)
-                             # over that ratio's median across the tensors
+                             # over max(1, that ratio's median)
+TRAIN_F64_SCALE = 1e-3       # the float64 step's bars: the float32 ones x this
+TRAIN_DECIDES = 1.0 / (1.0 + TRAIN_F64_RATIO)   # the CPU's float32 within
+                             # this share of a bar from float64: the float32
+                             # comparison decides (see judge)
 TRAIN_LOSSES = ("gen/loss_total", "gen/loss_recon", "gen/loss_nce_cnt",
                 "gen/loss_cyc")
 TRAIN_ACCURACIES = {"gen/cnt_acc_top1": 1, "gen/cnt_acc_top5": 5}
@@ -2120,137 +2128,211 @@ class PinnedChoices(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
-def float64_gradients(config, ckpt_path, bs, bc, norm, seed, choices):
-    """The gradients of the checkpoint's weights on this batch, in float64
-    on the CPU (dropout off), at the piecewise ``choices`` of another run:
-    what both float32 runs approximate.  Returns (gradients, flips)."""
+@contextlib.contextmanager
+def norm_spreads():
+    """Within the block, every mean_variance_norm call of the layers (each
+    AdaIN's input, the AdaIN attention's queries and keys) appends to the
+    yielded list the least ratio, over samples and channels, of its
+    tokens' spread to their offset, std / (|mean| + std): x - mean(x)
+    keeps about that share of float32's digits.  Where a decoder AdaIN's
+    gain 1 + gamma nears 0 (gamma, a linear layer's output, near -1), its
+    output's spread is |1 + gamma| beside an offset beta, and float32
+    keeps little of it: the step is ill-conditioned in float32 on every
+    device, the JAX package's included."""
+    real, seen = layers.mean_variance_norm, []
+
+    def watched(x, eps=1e-5):
+        a = x.detach().double().cpu().numpy()
+        s = a.std(axis=-2, ddof=1)
+        seen.append(float((s / (np.abs(a.mean(axis=-2)) + s + 1e-300))
+                          .min()))
+        return real(x, eps)
+
+    layers.mean_variance_norm = watched
+    try:
+        yield seen
+    finally:
+        layers.mean_variance_norm = real
+
+
+def parity_backward(config, ckpt_path, bs, bc, norm, seed, device, dtype,
+                    choices=None, step=False):
+    """One backward of the checkpoint's weights on the batches ``bs`` and
+    ``bc`` (dropout off) on ``device`` in ``dtype``, replaying the
+    piecewise ``choices`` of another run (None: its own, recorded).
+    Returns the metrics, the gradients and the NCE logits (float64, on the
+    CPU), the PinnedChoices, the least norm_spreads ratio and, with
+    ``step``, whether the weights are finite after update()."""
     t = GeneratorTrainer(dict(config, dropout=False), 1, seed=seed,
-                         device="cpu")
+                         device=device)
     t.load(ckpt_path)
-    t.gen.double()
-    t.prj.double()
+    if dtype == torch.float64:
+        t.gen.double()
+        t.prj.double()
+        bs, bc, norm = ({k: torch.as_tensor(v).double() for k, v in
+                         tree.items()} for tree in (bs, bc, norm))
+    with PinnedChoices(choices) as pin, norm_spreads() as spreads:
+        metrics, logits = t.backward(bs, bc, norm)
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": {f"{part}.{n}": p.grad.detach().double().cpu()
+                     for part, m in (("gen", t.gen), ("prj", t.prj))
+                     for n, p in m.named_parameters()},
+           "logits": logits.detach().double().cpu(), "pin": pin,
+           "spread": min(spreads)}
+    if step:
+        t.update()
+        out["finite"] = all(bool(torch.isfinite(p).all()) for p in
+                            (*t.gen.parameters(), *t.prj.parameters(),
+                             *t.gen_ema.parameters()))
+    return out
 
-    def f64(tree):
-        return {k: np.asarray(v, np.float64) for k, v in tree.items()}
 
-    with PinnedChoices(choices) as pin:
-        t.backward(f64(bs), f64(bc), f64(norm))
-    return {f"{part}.{n}": p.grad.detach()
-            for part, m in (("gen", t.gen), ("prj", t.prj))
-            for n, p in m.named_parameters()}, pin.flips
+def judge(d32, c32, c64, d64, bound32, bound64):
+    """A quantity of the step against its bars (elementwise tensors of
+    tolerances: ``bound32`` from the CPU's float32 values, ``bound64``
+    from float64's): the float32 card-to-CPU gap (``of_bar``), the CPU's
+    float32 distance to float64 (``cpu_f64_of_bar``) and the float64
+    card-to-CPU gap over TRAIN_F64_SCALE x ``bound64`` (``f64_of_bar``),
+    each as its largest share of the bar.  The float32 comparison decides
+    where the CPU's float32 lies within TRAIN_DECIDES = 1 / (1 +
+    TRAIN_F64_RATIO) of its bar from float64: there the bar leaves the
+    card at least TRAIN_F64_RATIO times the CPU's distance to float64, as
+    the ratio gate does.  A CPU farther off marks a quantity that float32
+    does not resolve at this step (two float32 runs land several times
+    apart there), and the float64 comparison decides it.  The float64
+    comparison always holds.  Returns (row, failed)."""
+    row = {"of_bar": float(((d32 - c32).abs() / bound32).max()),
+           "cpu_f64_of_bar": float(((c32 - c64).abs() / bound64).max()),
+           "f64_of_bar": float(((d64 - c64).abs()
+                                / (TRAIN_F64_SCALE * bound64)).max())}
+    row["decided"] = row["cpu_f64_of_bar"] <= TRAIN_DECIDES
+    failed = ((row["decided"] and row["of_bar"] > 1.0)
+              or row["f64_of_bar"] > 1.0)
+    return row, failed
 
 
 def train_parity(config, ckpt_path, ds, dev, seed):
-    """One train_step of the checkpoint's weights on ``dev`` and on the CPU
-    on the same batch (dropout off): the losses within TRAIN_LOSS_RTOL,
-    the gradients before the clip within TRAIN_GRAD_RTOL / TRAIN_GRAD_ATOL
-    x each tensor's largest |g| and, against a float64 gradient, no
-    tensor out of line with the rest: its card-to-CPU distance ratio
-    within TRAIN_F64_RATIO x the ratios' median; the NCE logits within
-    TRAIN_LOSS_RTOL of the largest positive, each top-k accuracy within
-    the share of rows that the logits' measured gap can flip; the stepped
-    weights finite on both.  Returns (gaps, the failures)."""
+    """One step of the checkpoint's weights on ``dev`` and on the CPU on
+    the same batch (dropout off), in float32 and in float64, the CPU and
+    both float64 runs replaying the card's piecewise choices.  Held (see
+    :func:`judge`): each loss within TRAIN_LOSS_RTOL, the NCE logits within
+    TRAIN_LOSS_RTOL of the largest positive, each gradient before the clip
+    within TRAIN_GRAD_RTOL / TRAIN_GRAD_ATOL x the tensor's largest |g|;
+    no gradient's card-to-CPU distance ratio to float64 over
+    TRAIN_F64_RATIO x max(1, the ratios' median); each top-k accuracy
+    within the share of rows that the
+    logits' measured gap can flip; the stepped weights finite on both.
+    Returns (gaps, the failures)."""
     batches = iterate_batches(ds, TRAIN_PARITY_BATCH, seed=seed)
-    bs, bc = next(batches), next(batches)
-    runs, choices, flips = {}, None, {}
-    for d in dict.fromkeys([dev, torch.device("cpu")]):
-        t = GeneratorTrainer(dict(config, dropout=False), 1, seed=seed,
-                             device=d)
-        t.load(ckpt_path)
-        with PinnedChoices(choices) as pin:
-            metrics, logits = t.backward(bs, bc, ds.norm)
-        choices, flips[d.type] = pin.choices, pin.flips
-        metrics = {k: float(v) for k, v in metrics.items()}
-        grads = {f"{part}.{n}": p.grad.detach().cpu()
-                 for part, m in (("gen", t.gen), ("prj", t.prj))
-                 for n, p in m.named_parameters()}
-        logits = logits.cpu()
-        t.update()
-        finite = all(bool(torch.isfinite(p).all()) for p in
-                     (*t.gen.parameters(), *t.prj.parameters(),
-                      *t.gen_ema.parameters()))
-        runs[d.type] = (metrics, grads, logits, finite)
-    (m_d, g_d, logits_d, fin_d), (m_c, g_c, logits, fin_c) = (
-        runs[dev.type], runs["cpu"])
-    failures = []
-    if not (fin_d and fin_c):
+    common = (config, ckpt_path, next(batches), next(batches), ds.norm,
+              seed)
+    cpu = torch.device("cpu")
+    d32 = parity_backward(*common, dev, torch.float32, step=True)
+    choices = d32["pin"].choices
+    c32 = (d32 if dev == cpu else
+           parity_backward(*common, cpu, torch.float32, choices, step=True))
+    c64 = parity_backward(*common, cpu, torch.float64, choices)
+    d64 = (c64 if dev == cpu else
+           parity_backward(*common, dev, torch.float64, choices))
+    failures, undecided = [], []
+    if not (d32["finite"] and c32["finite"]):
         failures.append("non-finite weights after the step")
-    gaps = {}
+    gaps = {"pinned_choices": {
+        "elements": sum(c.numel() for c in choices),
+        "flips": {"cpu": c32["pin"].flips, "float64": c64["pin"].flips,
+                  f"float64 on {dev.type}": d64["pin"].flips}},
+        "least_norm_spread": {"float32": d32["spread"],
+                              "float64": c64["spread"]}}
+
+    def held(name, row, failed, what):
+        if failed:
+            failures.append(f"{name} {what}: {json.dumps(row)}")
+        if not row["decided"]:
+            undecided.append(name)
+
+    # the losses, and the NCE logits that the accuracies rank
     for name in TRAIN_LOSSES:
-        gaps[name] = abs(m_d[name] - m_c[name]) / abs(m_c[name])
-        if gaps[name] > TRAIN_LOSS_RTOL:
-            failures.append(f"{name} {m_d[name]} on {dev.type}, {m_c[name]}"
-                            f" on the CPU (rel {gaps[name]:.3e})")
-    # the accuracies rank the NCE logits: they may differ only in rows whose
-    # positive sits within the logits' measured gap between the devices
-    # (twice it: both sides of a comparison move) of the k-th negative
-    noise = float((logits_d - logits).abs().max())
-    scale = float(logits[:, 0].abs().max())    # (the diagonal holds -10/T)
-    gaps["nce_logits"] = {"max_abs": noise, "max_positive": scale}
-    if noise > TRAIN_LOSS_RTOL * scale:
-        failures.append(f"NCE logits differ by {noise:.3e}")
+        vals = [torch.tensor(r["metrics"][name], dtype=torch.float64)
+                for r in (d32, c32, c64, d64)]
+        row, failed = judge(*vals, TRAIN_LOSS_RTOL * vals[1].abs(),
+                            TRAIN_LOSS_RTOL * vals[2].abs())
+        row.update({dev.type: float(vals[0]), "cpu": float(vals[1]),
+                    "float64": float(vals[2])})
+        gaps[name] = row
+        held(name, row, failed, "off")
+    logits = [r["logits"] for r in (d32, c32, c64, d64)]
+    row, failed = judge(*logits, *(TRAIN_LOSS_RTOL * float(l[:, 0].abs()
+                                                           .max())
+                                   for l in logits[1:3]))
+    noise = float((logits[0] - logits[1]).abs().max())
+    row["max_abs"] = noise
+    gaps["nce_logits"] = row
+    held("NCE logits", row, failed, "off")
     for name, k in TRAIN_ACCURACIES.items():
-        ties = near_ties(logits, k, 2 * noise)
-        bar = 100.0 * ties / logits.shape[0]
-        gaps[name] = {"abs": abs(m_d[name] - m_c[name]), "bar": bar,
-                      "near_ties": ties, dev.type: m_d[name],
-                      "cpu": m_c[name]}
+        ties = near_ties(logits[1], k, 2 * noise)
+        bar = 100.0 * ties / logits[1].shape[0]
+        a, b = d32["metrics"][name], c32["metrics"][name]
+        gaps[name] = {"abs": abs(a - b), "bar": bar, "near_ties": ties,
+                      dev.type: a, "cpu": b}
         if gaps[name]["abs"] > bar + 1e-3:
-            failures.append(f"{name} {m_d[name]} on {dev.type}, {m_c[name]}"
-                            f" on the CPU, over its bar {bar} ({ties} rows "
-                            f"within {2 * noise:.3e} of a flip)")
-    # the CPU and the float64 runs replay the card's piecewise choices (an
-    # L1 residual or a leaky ReLU input within rounding of zero may fall on
-    # either side; ``flips`` counts them).  Each tensor against the CPU
-    # within the bar scaled by its own largest |g|; a tensor whose float64
-    # gradient vanishes (decoder layer 0's ff.w2.bias, removed by layer 1's
-    # instance norm) carries only rounding on both devices, and takes its
-    # atol from the model's largest |g|.  Against float64, each tensor's
-    # card distance over the CPU's (plus a float32 spacing at its scale):
-    # the card's float32 sums may be uniformly less exact than the CPU's,
-    # by a factor that moves with the kernels it picks, so a tensor fails
-    # when its ratio exceeds TRAIN_F64_RATIO x the ratios' median.
-    g64, flips["float64"] = float64_gradients(config, ckpt_path, bs, bc,
-                                              ds.norm, seed, choices)
-    gaps["pinned_choices"] = {"elements": sum(c.numel() for c in choices),
-                              "flips": flips}
-    gscale = max(float(c.abs().max()) for c in g_c.values())
+            failures.append(f"{name} {a} on {dev.type}, {b} on the CPU, "
+                            f"over its bar {bar} ({ties} rows within "
+                            f"{2 * noise:.3e} of a flip)")
+    # the gradients: each tensor's bar scaled by its own largest |g|; a
+    # tensor whose float64 gradient vanishes (decoder layer 0's ff.w2.bias,
+    # removed by layer 1's instance norm) carries only rounding on every
+    # device and takes its atol from the model's largest |g|
+    g_d, g_c, g64, g_d64 = (r["grads"] for r in (d32, c32, c64, d64))
+    gscale = max(float(g.abs().max()) for g in g_c.values())
     gscale64 = max(float(g.abs().max()) for g in g64.values())
     eps = float(torch.finfo(torch.float32).eps)
     per_tensor = {}
     for name, c in g_c.items():
         scale, scale64 = float(c.abs().max()), float(g64[name].abs().max())
         vanishes = scale64 < TRAIN_GRAD_VANISH * gscale64
-        diff = torch.abs(g_d[name] - c)
-        bound = TRAIN_GRAD_RTOL * torch.abs(c) + TRAIN_GRAD_ATOL * (
-            gscale if vanishes else scale)
-        row = per_tensor[name] = {
-            "max_abs": float(diff.max()), "max_g": scale,
+        row, failed = judge(
+            g_d[name], c, g64[name], g_d64[name],
+            TRAIN_GRAD_RTOL * c.abs()
+            + TRAIN_GRAD_ATOL * (gscale if vanishes else scale),
+            TRAIN_GRAD_RTOL * g64[name].abs()
+            + TRAIN_GRAD_ATOL * (gscale64 if vanishes else scale64))
+        row.update({
+            "max_abs": float((g_d[name] - c).abs().max()), "max_g": scale,
             "max_g_f64": scale64, "vanishes": vanishes,
-            "of_bar": float((diff / bound).max()),
             "f64_" + dev.type: float((g_d[name] - g64[name]).abs().max()),
-            "f64_cpu": float((c - g64[name]).abs().max())}
+            "f64_cpu": float((c - g64[name]).abs().max())})
         row["f64_ratio"] = None if vanishes else (
             row["f64_" + dev.type] / (row["f64_cpu"] + eps * scale64))
-        if row["of_bar"] > 1.0:
-            failures.append(f"gradient {name} off by {row['max_abs']:.3e} "
-                            f"(max |g| {scale:.3e}), {row['of_bar']:.3f} of "
-                            "its bar")
+        per_tensor[name] = row
+        held(f"gradient {name}", row, failed,
+             f"off (max |g| {scale:.3e})")
+    # against float64, each tensor's card distance over the CPU's (plus a
+    # float32 spacing at its scale): a fault hiding within the bar, or in a
+    # tensor that float32 does not resolve, shows as a tensor out of line
+    # with the rest.  The card's float32 may be uniformly less exact than
+    # the CPU's, by a factor that moves with the kernels it picks; a
+    # uniformly more exact card raises no bar
     ratios = {n: r["f64_ratio"] for n, r in per_tensor.items()
-              if not r["vanishes"]}
+              if r["f64_ratio"] is not None}
     median = float(np.median(list(ratios.values())))
     for name, ratio in ratios.items():
-        if ratio > TRAIN_F64_RATIO * median:
+        if ratio > TRAIN_F64_RATIO * max(1.0, median):
             failures.append(
                 f"gradient {name} {per_tensor[name]['f64_' + dev.type]:.3e}"
                 f" from float64 on {dev.type}, {ratio:.2f}x the CPU's "
                 f"{per_tensor[name]['f64_cpu']:.3e}, over "
-                f"{TRAIN_F64_RATIO} x the median ratio {median:.3f}")
+                f"{TRAIN_F64_RATIO} x max(1, the median ratio {median:.3f})")
     gaps["gradients"] = {
         "tensors": len(g_c), "max_g_all": gscale,
-        "vanishing": sorted(set(per_tensor) - set(ratios)),
+        "vanishing": sorted(n for n, r in per_tensor.items()
+                            if r["vanishes"]),
         "f64_ratio_median": median}
-    for key, among in (("of_bar", per_tensor), ("f64_ratio", ratios)):
+    gaps["decided_in_float64_alone"] = undecided
+    gaps["float32_misses"] = sorted(n for n, r in per_tensor.items()
+                                    if r["of_bar"] > 1.0)
+    for key, among in (("of_bar", per_tensor), ("f64_of_bar", per_tensor),
+                       ("cpu_f64_of_bar", per_tensor),
+                       ("f64_ratio", ratios)):
         worst = max(among, key=lambda n: per_tensor[n][key])
         gaps["gradients"]["worst_" + key] = {"tensor": worst,
                                              **per_tensor[worst]}

@@ -359,6 +359,41 @@ def test_pinned_choices_replay_a_runs_kinks(smoke):
     assert replayed == first and again.flips == 3
 
 
+def test_parity_judge_decides_in_float32_where_the_cpu_meets_float64(
+        smoke):
+    """chip_smoke.judge: the float32 card-to-CPU bar decides where the
+    CPU's float32 lies within 1/9 of its bar from float64; a CPU farther off
+    leaves the quantity to the float64 comparison, which always holds at
+    a bar TRAIN_F64_SCALE times the float32 one.  norm_spreads reads the
+    least spread-to-offset ratio at a mean_variance_norm input."""
+    g64 = torch.tensor([1.0, -2.0, 0.5], dtype=torch.float64)
+    bar = torch.full_like(g64, 1e-3)
+
+    def run(cpu_off, card_off, card64_off):
+        c32 = g64 + cpu_off
+        return smoke.judge(c32 + card_off, c32, g64, g64 + card64_off,
+                           bar, bar)
+
+    row, failed = run(1e-4, 5e-4, 0.0)
+    assert row["decided"] and not failed
+    assert row["of_bar"] == pytest.approx(0.5)
+    row, failed = run(1e-4, 2e-3, 0.0)
+    assert row["decided"] and failed
+    row, failed = run(8e-4, 2e-3, 5e-7)
+    assert not row["decided"] and not failed
+    assert row["cpu_f64_of_bar"] == pytest.approx(0.8)
+    row, failed = run(8e-4, 0.0, 2e-6)
+    assert not row["decided"] and failed and row["f64_of_bar"] > 1.0
+
+    from mocha_sigasia2023_torch.models import layers
+    real = layers.mean_variance_norm
+    x = 1.0 + 1e-4 * torch.randn(2, 90, 8, dtype=torch.float64)
+    with smoke.norm_spreads() as seen:
+        layers.mean_variance_norm(x)
+    assert layers.mean_variance_norm is real and len(seen) == 1
+    assert 5e-5 < seen[0] < 2e-4
+
+
 def test_velocity_bar_follows_the_positions_gap(smoke):
     """chip_smoke's velocity parity: implied_velocity_gap is featurize's
     central difference of the positions' gap, range by range, so two
