@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving, dataset and training paths on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, dataset and training paths (the
+generator's and the CVAE's) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -117,7 +117,27 @@ Phases (any failure exits non-zero; each prints its wall time):
      240 frames): its EMA served through the tuned fp32 kernel, exactly
      the launches its windows and frames imply, every output parsed back
      finite.
-  The general kernel's counter stays at 0 through phases 4-11: the
+  12. cvae: on the dataset phase's files, collect_features character
+     for the source style (Neutral_AverageJoe running and walking, 4,560
+     windows, 36 float32 launches) on the same --random-init generator;
+     cli/train_cvae.main in-process at the shipped cvae config (latent
+     256, depth 2, 4 heads, ff 512, dropout 0.1, condition dropout 0.8,
+     rollout 10, batch 32, 90 tokens) for 40 iterations: no attention
+     kernel launched, every logged value finite, the iteration period
+     (CUDA events at each step_placed start, median after 5),
+     sample_batch's host time and its share of the period, peak memory,
+     the first and last logged encoded_loss.  Then one iteration from
+     the trained weights on one batch on the card and on the CPU
+     (dropout and condition dropout 0, z = mu), teacher-forced and
+     student-forced: metrics within rtol 2e-3 / 5e-2 / 1e-2 / 1e-2
+     (enc / kl / cnt / dist), the mean |card - CPU| of the parameters
+     under 0.2 x the mean update, the largest under 10 lr (R - 1)
+     (tests/test_train.py:640-667); one with bf16 forwards, masters
+     float32, finite, enc / cnt / dist within 5% of float32's.  Then
+     characterize --src-dir on 4 of the phase's clips with --cvae-ckpt
+     on the written cvae_000040.ckpt and its cvae_norm.npz: exactly the
+     tuned launches its windows and frames imply, every output finite.
+  The general kernel's counter stays at 0 through phases 4-12: the
   shipped config never leaves the tuned kernels.
 
 The line before the last is a JSON object describing every kernel; the
@@ -153,6 +173,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from mocha_sigasia2023_torch.cli import (  # noqa: E402
     characterize, collect_features, generate_database)
 from mocha_sigasia2023_torch.cli import train as train_cli  # noqa: E402
+from mocha_sigasia2023_torch.cli import train_cvae as train_cvae_cli  # noqa: E402
 from mocha_sigasia2023_torch.data.dataset import (  # noqa: E402
     MotionDataset, compute_norm_stats, iterate_batches, window_xy_features)
 from mocha_sigasia2023_torch.data.preprocess import featurize_clip  # noqa: E402
@@ -160,6 +181,7 @@ from mocha_sigasia2023_torch.data.synthetic import make_mocha_bvh_data  # noqa: 
 from mocha_sigasia2023_torch.data.windows import (  # noqa: E402
     full_window_indices, padded_window_indices, window_features)
 from mocha_sigasia2023_torch.io import bvh  # noqa: E402
+from mocha_sigasia2023_torch.models import cvae as cvae_mod  # noqa: E402
 from mocha_sigasia2023_torch.models.cvae import CVAEConfig, init_cvae  # noqa: E402
 from mocha_sigasia2023_torch.models import layers  # noqa: E402
 from mocha_sigasia2023_torch.models.generator import (  # noqa: E402
@@ -175,6 +197,8 @@ from mocha_sigasia2023_torch.runtime.stream import (  # noqa: E402
 from mocha_sigasia2023_torch.train import checkpoint as train_ckpt  # noqa: E402
 from mocha_sigasia2023_torch.train.trainer import (  # noqa: E402
     GeneratorTrainer)
+from mocha_sigasia2023_torch.train.trainer_cvae import (  # noqa: E402
+    CVAETrainer)
 from mocha_sigasia2023_torch.utils import get_config  # noqa: E402
 
 # H100 SXM data sheet: HBM bandwidth, dense TF32 and bf16 tensor-core rates,
@@ -1658,30 +1682,40 @@ def dataset_names(clips=DATASET_CLIPS):
     return [f"{a}_{s}_{i:03d}" for i, (s, a) in enumerate(pairs)]
 
 
-def dataset_expected(cfg, clips=DATASET_CLIPS, frames=DATASET_FRAMES):
-    """Windows and float32 attention launches of the dataset phase's two
-    exports: cnt-norm windows every 20 frames of each range (both
-    variants of every clip), character windows range(60, T) of the
-    character's ranges; one launch per encoder layer per batch of 256."""
+def character_expected(cfg, style, clips=DATASET_CLIPS,
+                       frames=DATASET_FRAMES):
+    """Ranges, windows and float32 attention launches of ``collect_features
+    character`` for ``style`` over DATASET_CHARACTER_ACTIONS: windows
+    range(60, T) of each of the style's clips of those actions, both
+    variants; one launch per encoder layer per batch of 256."""
     vocab = get_config(generate_database.DEFAULT_DATASET_CONFIG)
-    style = vocab["mocha_style_names"][DATASET_STYLE]
+    name = vocab["mocha_style_names"][style]
     actions = [vocab["mocha_action_names"][a] + "_"
                for a in DATASET_CHARACTER_ACTIONS]
     character = [n for n in dataset_names(clips)
-                 if style in n and n.startswith(tuple(actions))]
+                 if f"_{name}_" in n and n.startswith(tuple(actions))]
+    windows = 2 * len(character) * (frames - DATASET_WINDOW)
+    return {"ranges": 2 * len(character), "windows": windows,
+            "launches": encode_launches(cfg, windows)}
+
+
+def encode_launches(cfg, windows):
+    return -(-windows // ENCODE_BATCH) * cfg.encoder_depth
+
+
+def dataset_expected(cfg, clips=DATASET_CLIPS, frames=DATASET_FRAMES):
+    """Windows and float32 attention launches of the dataset phase's two
+    exports: cnt-norm windows every 20 frames of each range (both
+    variants of every clip), and the character's (character_expected)."""
     cnt_windows = 2 * clips * len(full_window_indices(
         frames, DATASET_WINDOW, DATASET_STEP))
-    char_windows = 2 * len(character) * (frames - DATASET_WINDOW)
-
-    def launches(w):
-        return -(-w // ENCODE_BATCH) * cfg.encoder_depth
-
+    character = character_expected(cfg, DATASET_STYLE, clips, frames)
     return {"frames": 2 * clips * frames, "ranges": 2 * clips,
             "cnt_norm_windows": cnt_windows,
-            "cnt_norm_launches": launches(cnt_windows),
-            "character_ranges": 2 * len(character),
-            "character_windows": char_windows,
-            "character_launches": launches(char_windows)}
+            "cnt_norm_launches": encode_launches(cfg, cnt_windows),
+            "character_ranges": character["ranges"],
+            "character_windows": character["windows"],
+            "character_launches": character["launches"]}
 
 
 def quiet(fn, *args):
@@ -2458,6 +2492,336 @@ def train_phase(cfg, dev, root, *, config=None, epochs=TRAIN_EPOCHS,
     return result, char_launches
 
 
+CVAE_SOURCE_STYLE = 2           # Neutral_AverageJoe in configs/dataset.yaml
+CVAE_ITERS = 40
+CVAE_WARMUP = 5                 # iterations left out of the period median
+CVAE_CHARACTERIZE_CLIPS = 4
+CVAE_METRICS = ("cvae/encoded_loss", "cvae/kl_loss", "cvae/cnt_loss",
+                "cvae/dist_loss")
+# one rollout on the card against the CPU (tests/test_train.py:640-667):
+# metric rtols, the mean parameter gap as a share of the mean update, and
+# the largest gap in units of lr (R - 1)
+CVAE_METRIC_RTOL = (2e-3, 5e-2, 1e-2, 1e-2)
+CVAE_PARAM_SHARE = 0.2
+CVAE_PARAM_MAX_LR = 10.0
+CVAE_BF16_SHARE = 0.05          # bf16 metrics to float32 (:489-523)
+
+
+@contextlib.contextmanager
+def timed_cvae_iterations(dev):
+    """Inside the block, every CVAETrainer.step_placed marks its start (a
+    CUDA event on the card, the host clock on the CPU), the last one its
+    end too, and its host time is taken; every sample_batch's host time
+    is taken (in the prefetch thread).  The yielded lists of iteration
+    periods, step host times and sample_batch times (ms) fill when the
+    block ends."""
+    step, sample = CVAETrainer.step_placed, CVAETrainer.sample_batch
+    marks, periods, host, sampled = [], [], [], []
+
+    def mark():
+        if dev.type == "cuda":
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+        return time.perf_counter()
+
+    def timed_step(self, *args, **kw):
+        marks.append(mark())
+        t0 = time.perf_counter()
+        try:
+            return step(self, *args, **kw)
+        finally:
+            host.append((time.perf_counter() - t0) * 1e3)
+
+    def timed_sample(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return sample(self, *args, **kw)
+        finally:
+            sampled.append((time.perf_counter() - t0) * 1e3)
+
+    CVAETrainer.step_placed, CVAETrainer.sample_batch = timed_step, \
+        timed_sample
+    try:
+        yield periods, host, sampled
+    finally:
+        CVAETrainer.step_placed, CVAETrainer.sample_batch = step, sample
+        marks.append(mark())
+        sync(dev)
+        periods.extend(a.elapsed_time(b) if dev.type == "cuda"
+                       else (b - a) * 1e3 for a, b in zip(marks, marks[1:]))
+
+
+@contextlib.contextmanager
+def reparameterize_to_mu():
+    """z = mu in every CVAE forward (the noise cannot be matched across
+    devices)."""
+    real = cvae_mod.reparameterize
+    cvae_mod.reparameterize = lambda generator, mu, logvar: mu
+    try:
+        yield
+    finally:
+        cvae_mod.reparameterize = real
+
+
+def cvae_trainer_like(trainer, files, tc, dev):
+    """A CVAETrainer of config ``tc`` on ``dev`` over the feature arrays of
+    ``trainer`` (the CLI's) and the labels and ranges of ``files`` (source
+    features, character features, cnt_norm.npz)."""
+    src, cha, cnt = (np.load(f) for f in files)
+    return CVAETrainer(
+        tc, src_cnt=trainer.src_cnt, src_action=src["action_label"],
+        src_range_starts=src["range_starts"],
+        src_range_stops=src["range_stops"], cha_cnt=trainer.cha_cnt,
+        cha_encoded=trainer.cha_encoded, cha_action=cha["action_label"],
+        cha_range_starts=cha["range_starts"],
+        cha_range_stops=cha["range_stops"], cnt_mean=cnt["mean"],
+        cnt_std=cnt["std"], target_actions=trainer.target_actions,
+        device=dev)
+
+
+def cvae_rollout(trainer, state, batch, student_p, anneal_w):
+    """One rollout of ``trainer`` from the weights ``state`` (a fresh
+    optimizer) on the host ``batch``; returns (metrics, float64 parameters
+    after it, on the CPU)."""
+    trainer.restart(state)
+    m = trainer.rollout(*(torch.as_tensor(a, device=trainer.device)
+                          for a in batch), student_p, anneal_w,
+                        torch.Generator(device=trainer.device).manual_seed(0))
+    flat = torch.cat([p.detach().double().cpu().ravel()
+                      for p in trainer.cvae.parameters()])
+    return m.double().cpu().numpy(), flat
+
+
+def cvae_parity(trainer, files, dev):
+    """One iteration from the trained weights and one batch on ``dev`` and
+    on the CPU (dropout and condition dropout 0, z = mu), teacher-forced
+    and student-forced, held to the bars of tests/test_train.py:640-667;
+    then one iteration with bf16 forwards on ``dev`` against float32's
+    (masters float32, finite, metrics within 5%)."""
+    tc = trainer.tc._replace(dropout=0.0, condition_dropout=0.0)
+    state = {k: v.detach().cpu() for k, v in
+             trainer.cvae.state_dict().items()}
+    batch = None
+    while batch is None:
+        batch = trainer.sample_batch(0)
+    anneal_w = 0.7
+    init = torch.cat([v.double().ravel() for v in state.values()])
+    bound_max = CVAE_PARAM_MAX_LR * tc.lr * (tc.rollout_steps - 1)
+    out, failures = {"batch": list(batch[0].shape)}, []
+    card = cvae_trainer_like(trainer, files, tc, dev)
+    cpu = cvae_trainer_like(trainer, files, tc, torch.device("cpu"))
+    with reparameterize_to_mu():
+        for student_p in (0.0, 1.0):
+            m_dev, p_dev = cvae_rollout(card, state, batch, student_p,
+                                        anneal_w)
+            m_cpu, p_cpu = cvae_rollout(cpu, state, batch, student_p,
+                                        anneal_w)
+            rel = np.abs(m_dev - m_cpu) / np.abs(m_cpu)
+            upd = float((p_cpu - init).abs().mean())
+            gap = (p_dev - p_cpu).abs()
+            row = {"metrics_card": m_dev.tolist(),
+                   "metrics_cpu": m_cpu.tolist(),
+                   "metric_rel": dict(zip(CVAE_METRICS, rel.tolist())),
+                   "metric_rtol": dict(zip(CVAE_METRICS, CVAE_METRIC_RTOL)),
+                   "param_mean_gap": float(gap.mean()),
+                   "param_mean_update": upd,
+                   "param_mean_gap_bar": CVAE_PARAM_SHARE * upd,
+                   "param_max_gap": float(gap.max()),
+                   "param_max_gap_bar": bound_max}
+            tag = f"student_p {student_p:g}"
+            out[tag] = row
+            for name, r, bar in zip(CVAE_METRICS, rel, CVAE_METRIC_RTOL):
+                if not r <= bar:
+                    failures.append(f"{tag} {name} rel {r:.3g} > {bar}")
+            if not upd > 1e-5:
+                failures.append(f"{tag}: the rollout moved no weight")
+            if not row["param_mean_gap"] < row["param_mean_gap_bar"]:
+                failures.append(f"{tag}: mean parameter gap "
+                                f"{row['param_mean_gap']:.3g} >= "
+                                f"{row['param_mean_gap_bar']:.3g}")
+            if not row["param_max_gap"] < bound_max:
+                failures.append(f"{tag}: largest parameter gap "
+                                f"{row['param_max_gap']:.3g} >= "
+                                f"{bound_max:.3g}")
+            log(f"[cvae] parity {tag}: metric rel "
+                + ", ".join(f"{n.split('/')[1]} {r:.3g} (bar {b})" for n, r, b
+                            in zip(CVAE_METRICS, rel, CVAE_METRIC_RTOL))
+                + f"; parameters mean gap {row['param_mean_gap']:.3g} (bar "
+                f"{row['param_mean_gap_bar']:.3g} = {CVAE_PARAM_SHARE} x mean "
+                f"update {upd:.3g}), largest {row['param_max_gap']:.3g} (bar "
+                f"{bound_max:.3g})")
+        del cpu
+        m32 = np.asarray(out["student_p 0"]["metrics_card"])
+        bf16 = cvae_trainer_like(trainer, files,
+                                 tc._replace(compute_dtype="bfloat16"), dev)
+        mbf, pbf = cvae_rollout(bf16, state, batch, 0.0, anneal_w)
+    masters = all(p.dtype == torch.float32 for p in bf16.cvae.parameters())
+    share = {n: float(abs(a - b) / max(abs(a), 1.0))
+             for n, a, b in zip(CVAE_METRICS, m32, mbf)}
+    out["bf16"] = {"metrics_float32": m32.tolist(),
+                   "metrics_bf16": mbf.tolist(), "share": share,
+                   "bar": CVAE_BF16_SHARE, "masters_float32": masters,
+                   "finite": bool(np.isfinite(mbf).all()
+                                  and torch.isfinite(pbf).all())}
+    if not (masters and out["bf16"]["finite"]):
+        failures.append(f"bf16: masters float32 {masters}, finite "
+                        f"{out['bf16']['finite']}")
+    for n in ("cvae/encoded_loss", "cvae/cnt_loss", "cvae/dist_loss"):
+        if not share[n] <= CVAE_BF16_SHARE:
+            failures.append(f"bf16 {n}: {share[n]:.3g} of float32's > "
+                            f"{CVAE_BF16_SHARE}")
+    log(f"[cvae] bf16 iteration: " + ", ".join(
+        f"{n.split('/')[1]} {share[n]:.3g}" for n in CVAE_METRICS)
+        + f" of float32's (bar {CVAE_BF16_SHARE} on enc, cnt, dist); masters "
+        f"float32 {masters}; finite {out['bf16']['finite']}")
+    return out, failures
+
+
+def cvae_phase(cfg, dev, root, *, config=None, iters=CVAE_ITERS,
+               source_style=CVAE_SOURCE_STYLE,
+               characterize_clips=CVAE_CHARACTERIZE_CLIPS,
+               clips=DATASET_CLIPS, frames=DATASET_FRAMES):
+    """Phase 12, on the dataset phase's files in ``root``: (a) the source
+    style's collect_features character export over the character's
+    actions, on the same --random-init generator; (b) cli/train_cvae at
+    the config's cvae section for ``iters`` iterations: no attention
+    kernel launched, every logged value finite, the iteration period by
+    CUDA events, sample_batch's host time and its share, peak memory;
+    (c, d) cvae_parity; (e) characterize --src-dir on
+    ``characterize_clips`` of the phase's clips with --cvae-ckpt on the
+    written checkpoint and its --cvae-norm, outputs finite and exactly
+    the tuned launches its windows and frames imply.  Returns (result,
+    float32 launches of the characterize call)."""
+    t_phase = time.perf_counter()
+    config = config or characterize.DEFAULT_CONFIG
+    data, bvh_dir = os.path.join(root, "data"), os.path.join(root, "bvh")
+    work = os.path.join(root, "cvae")
+    os.makedirs(work)
+    src_path = os.path.join(root, "source_feature.npz")
+    cha_path = os.path.join(root, "princess_feature.npz")
+    exp = character_expected(cfg, source_style, clips, frames)
+    reset_launches()
+    feats, export_s, _ = quiet(collect_features.main, [
+        "character", "--data-dir", data, "--random-init", "--device",
+        dev.type, "--config", config, "--styles", str(source_style),
+        "--actions", *map(str, DATASET_CHARACTER_ACTIONS), "--out",
+        src_path])
+    export_launches = check_tuned_launches(dev, "cvae source export",
+                                           exp["launches"])
+    check(feats["encoded"].shape[0] == exp["windows"]
+          and len(feats["range_starts"]) == exp["ranges"],
+          f"cvae source export: {feats['encoded'].shape[0]} windows in "
+          f"{len(feats['range_starts'])} ranges, want {exp}")
+    del feats
+    log(f"[cvae] source export (style {source_style}) {export_s:.2f} s for "
+        f"{exp['windows']} windows, {export_launches} float32 launches")
+
+    files = (src_path, cha_path, os.path.join(data, "cnt_norm.npz"))
+    reset_launches()
+    reset_peak_memory(dev)
+    with timed_cvae_iterations(dev) as (periods, host, sampled):
+        trainer, main_s, _ = quiet(train_cvae_cli.main, [
+            "--config", config, "--src-features", src_path,
+            "--cha-features", cha_path, "--cnt-norm", files[2], "--out",
+            work, "--num-iters", str(iters), "--device", dev.type])
+    peak_gb = peak_memory_gb(dev)
+    training_launches = all_launches()
+    check(not any(training_launches.values()),
+          f"cvae: attention kernels launched while training: "
+          f"{training_launches}")
+    tc = trainer.tc
+    check(len(periods) == iters > CVAE_WARMUP
+          and trainer.updates == iters * (tc.rollout_steps - 1),
+          f"cvae: {len(periods)} iterations timed, {trainer.updates} "
+          f"updates, want {iters} and {iters * (tc.rollout_steps - 1)}")
+    metrics = read_metrics(os.path.join(work, "log", "metrics.jsonl"))
+    check(all(np.isfinite(v).all() for v in metrics.values()),
+          "cvae: a logged metric is not finite")
+    enc = metrics["cvae/encoded_loss"]
+    ckpt_path = os.path.join(work, f"cvae_{iters:06d}.ckpt")
+    check(os.path.isfile(ckpt_path)
+          and train_ckpt.load_checkpoint(ckpt_path)["iteration"] == iters
+          and os.path.isfile(os.path.join(work, "cvae_norm.npz")),
+          f"cvae: no {ckpt_path} of iteration {iters} or no cvae_norm.npz")
+    period_ms = float(np.median(periods[CVAE_WARMUP:]))
+    host_ms = float(np.median(host[CVAE_WARMUP:]))
+    sample_ms = float(np.median(sampled[CVAE_WARMUP:]))
+    rate = 1e3 / period_ms
+    windows = tc.batch_size * tc.rollout_steps
+    log(f"[cvae] cli/train_cvae {iters} iterations (batch {tc.batch_size}, "
+        f"rollout {tc.rollout_steps}, latent {tc.latent_dim}, depth "
+        f"{tc.depth}): period {period_ms:.2f} ms (median after "
+        f"{CVAE_WARMUP}; host {host_ms:.2f} ms in step_placed), "
+        f"{rate:.3f} iterations/s, {rate * (tc.rollout_steps - 1):.2f} "
+        f"updates/s, {rate * windows:.1f} rollout windows/s; sample_batch "
+        f"{sample_ms:.2f} ms ({sample_ms / period_ms:.3f} of the period); "
+        f"main() {main_s:.2f} s; peak {peak_gb:.2f} GB; encoded_loss first "
+        f"{enc[0]:.4f}, last {enc[-1]:.4f} ({len(enc)} logged, all finite)")
+
+    parity, failures = cvae_parity(trainer, files, dev)
+    del trainer
+
+    src = os.path.join(work, "src")
+    os.makedirs(src)
+    names = dataset_names(clips)
+    for name in names[:characterize_clips]:
+        shutil.copy(os.path.join(bvh_dir, name + ".bvh"), src)
+    cha = os.path.join(bvh_dir, names[0] + ".bvh")
+    out_dir = os.path.join(work, "characterized")
+    _, char_s, _, char_launches = run_cli(
+        ["--src-dir", src, "--cha", cha, "--random-init", "--cvae-ckpt",
+         ckpt_path, "--cvae-norm", os.path.join(work, "cvae_norm.npz"),
+         "--norm", os.path.join(data, "norm.npz"), "--cnt-norm", files[2],
+         "--device", dev.type, "--out", out_dir, "--config", config])
+    # every clip, the character's too, has ``frames`` frames
+    n_out = len(padded_window_indices(frames, 60, 1)[0])
+    want = (cli_expected_launches(cfg, [frames] * characterize_clips)
+            + -(-n_out // 128) * cfg.encoder_depth)
+    check_launches(dev, char_launches == want,
+                   f"cvae characterize: {char_launches} float32 launches, "
+                   f"want {want}")
+    outs = read_outputs(out_dir)
+    check(len(outs) == 3 * characterize_clips,
+          f"cvae characterize: {len(outs)} output files")
+    for f, d in outs.items():
+        check(d["rotations"].shape[0] == n_out
+              and np.isfinite(d["rotations"]).all()
+              and np.isfinite(d["positions"]).all(),
+              f"cvae characterize: {f} has {d['rotations'].shape[0]} frames "
+              f"(want {n_out}) or is not finite")
+    log(f"[cvae] characterize --cvae-ckpt {os.path.basename(ckpt_path)} on "
+        f"{characterize_clips} clips: {char_s:.2f} s, {char_launches} "
+        "float32 launches; every output parses back finite with its frame "
+        "count")
+    result = {
+        "iterations": iters, "batch": tc.batch_size,
+        "rollout_steps": tc.rollout_steps, "latent_dim": tc.latent_dim,
+        "depth": tc.depth, "nheads": tc.nheads,
+        "feedforward_dim": tc.feedforward_dim, "dropout": tc.dropout,
+        "condition_dropout": tc.condition_dropout, "tokens": tc.nseq,
+        "source_export_s": export_s, "source_windows": exp["windows"],
+        "source_export_float32_launches": export_launches,
+        "period_ms_median": period_ms,
+        "period_ms_range": [float(min(periods)), float(max(periods))],
+        "iterations_per_s": rate,
+        "updates_per_s": rate * (tc.rollout_steps - 1),
+        "rollout_windows_per_s": rate * windows,
+        "step_host_ms_median": host_ms,
+        "sample_batch_ms_median": sample_ms,
+        "sample_batch_share": sample_ms / period_ms,
+        "train_main_s": main_s, "peak_memory_gb": peak_gb,
+        "encoded_loss_first": float(enc[0]),
+        "encoded_loss_last": float(enc[-1]),
+        "logged_values": len(enc), "training_launches": training_launches,
+        "parity": parity, "characterize_s": char_s,
+        "characterize_float32_launches": char_launches,
+        "phase_s": time.perf_counter() - t_phase}
+    log(f"[cvae] {json.dumps(result)}")
+    check(not failures, "cvae parity: " + "; ".join(failures))
+    return result, char_launches
+
+
 def build_sources():
     """Every CUDA source of the port: one per tuned dtype, and the
     general kernel's."""
@@ -2582,7 +2946,10 @@ def main():
         no_general("dataset")
         train_result, train_launches = phase("train", train_phase, cfg, dev,
                                              root)
-    no_general("train")
+        no_general("train")
+        cvae_result, cvae_launches = phase("cvae", cvae_phase, cfg, dev,
+                                           root)
+    no_general("cvae")
     log(f"[dataset] build {dataset_result['build_frames_per_s']:.1f} "
         f"frames/s ({dataset_result['frames']} frames, "
         f"{dataset_result['database_mb']:.1f} MB); encode "
@@ -2607,6 +2974,17 @@ def main():
     log(f"[train] loss_total mean of the first {LOSS_WINDOW} logged values "
         f"{train_result['loss_total_first']:.4f}, of the last {LOSS_WINDOW} "
         f"{train_result['loss_total_last']:.4f}; on {card}")
+    log(f"[cvae] iterations/s {cvae_result['iterations_per_s']:.3f}, "
+        f"updates/s {cvae_result['updates_per_s']:.2f}, rollout windows/s "
+        f"{cvae_result['rollout_windows_per_s']:.1f} (median period "
+        f"{cvae_result['period_ms_median']:.2f} ms after {CVAE_WARMUP}); "
+        f"sample_batch {cvae_result['sample_batch_ms_median']:.2f} ms, "
+        f"{cvae_result['sample_batch_share']:.3f} of the period; on {card}")
+    log(f"[cvae] peak memory {cvae_result['peak_memory_gb']:.2f} GB; phase "
+        f"{cvae_result['phase_s']:.1f} s; on {card}")
+    log(f"[cvae] encoded_loss first logged "
+        f"{cvae_result['encoded_loss_first']:.4f}, last "
+        f"{cvae_result['encoded_loss_last']:.4f}; on {card}")
 
     def kernel_entry(name, rows, edge, source, launches_by_path,
                      main_launches, design, shape="decoder streams"):
@@ -2634,7 +3012,10 @@ def main():
                       "dataset": dataset_launches,
                       "train_steps": train_result["training_launches"][
                           "launches"],
-                      "train_characterize": train_launches},
+                      "train_characterize": train_launches,
+                      "cvae_iterations": cvae_result["training_launches"][
+                          "launches"],
+                      "cvae_characterize": cvae_launches},
                      launches, DESIGN),
         kernel_entry("attention_bf16", bf16_rows, bf16_edge_max_abs,
                      attention.SOURCE_BF16,

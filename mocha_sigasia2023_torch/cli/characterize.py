@@ -7,9 +7,11 @@ character's style and writes ``Src_``/``Ours_``/``CM_`` BVHs per clip.
 It runs on the GPU unless ``--device cpu`` is given.
 
 Checkpoints: the reference PyTorch files (``model_ours/pth/gen_125.pt``,
-``cvae_020000.pt``), and for the generator also the port trainer's
-(``model_ours/pth/gen_125.ckpt``, its EMA served).  With ``--random-init`` it runs on fresh weights drawn
-from NumPy seeds (not the JAX package's ``PRNGKey(1777)`` weights).
+``cvae_020000.pt``), the JAX package's msgpack files (``gen_125.msgpack``,
+its ``gen_ema`` served; ``cvae_020000.msgpack``, its ``cvae``) and the port
+trainers' (``gen_125.ckpt``, its EMA served; ``cvae_020000.ckpt``).  With
+``--random-init`` it runs on fresh weights drawn from NumPy seeds (not the
+JAX package's ``PRNGKey(1777)`` weights).
 
 Run: python -m mocha_sigasia2023_torch.cli.characterize \\
          --src bvh/Loco_Walk_Neutral_AverageJoe_001.bvh \\
@@ -34,6 +36,7 @@ from ..data.preprocess import featurize_clip
 from ..data.windows import window_features
 from ..device import resolve_device
 from ..io import bvh
+from ..io.msgpack import read_msgpack
 from ..models import CVAEConfig, GeneratorConfig, convert
 from ..models.cvae import init_cvae
 from ..models.generator import init_generator
@@ -42,6 +45,7 @@ from ..runtime import features as rtf
 from ..runtime import stream as rts
 from ..train import checkpoint
 from ..train.trainer import load_generator as load_trained_generator
+from ..train.trainer_cvae import load_cvae as load_trained_cvae
 from ..utils import ensure_dirs, get_config
 
 DEFAULT_CONFIG = os.path.join(
@@ -49,19 +53,24 @@ DEFAULT_CONFIG = os.path.join(
     "configs", "config.yaml")
 
 
-def _require_checkpoint(path: str, flag: str, suffixes=(".pt",)) -> None:
+JAX_SUFFIX = ".msgpack"
+
+
+def _require_checkpoint(path: str, flag: str) -> None:
+    suffixes = (".pt", JAX_SUFFIX, checkpoint.SUFFIX)
     if not path.endswith(suffixes):
-        raise SystemExit(
-            f"{flag} {path}: only {' and '.join(suffixes)} checkpoints are "
-            "read; the JAX package's msgpack checkpoints wait for the "
-            "port's msgpack reader (ROADMAP.md R8)")
+        raise SystemExit(f"{flag} {path}: not a {', '.join(suffixes)} "
+                         "checkpoint")
 
 
 def load_generator(args, cfg: GeneratorConfig, dev):
     if args.gen_ckpt:
-        _require_checkpoint(args.gen_ckpt, "--gen-ckpt", (".pt", checkpoint.SUFFIX))
+        _require_checkpoint(args.gen_ckpt, "--gen-ckpt")
         if args.gen_ckpt.endswith(checkpoint.SUFFIX):
             return load_trained_generator(args.gen_ckpt, cfg, device=dev)
+        if args.gen_ckpt.endswith(JAX_SUFFIX):
+            return convert.generator_from_jax(
+                read_msgpack(args.gen_ckpt)["gen_ema"], cfg, device=dev)
         return convert.load_reference_generator_checkpoint(
             args.gen_ckpt, cfg, device=dev)
     if not args.random_init:
@@ -72,6 +81,11 @@ def load_generator(args, cfg: GeneratorConfig, dev):
 def load_cvae(args, cvae_cfg: CVAEConfig, dev):
     if args.cvae_ckpt:
         _require_checkpoint(args.cvae_ckpt, "--cvae-ckpt")
+        if args.cvae_ckpt.endswith(checkpoint.SUFFIX):
+            return load_trained_cvae(args.cvae_ckpt, cvae_cfg, device=dev)
+        if args.cvae_ckpt.endswith(JAX_SUFFIX):
+            return convert.cvae_from_jax(
+                read_msgpack(args.cvae_ckpt)["cvae"], cvae_cfg, device=dev)
         return convert.cvae_from_torch(
             convert.load_torch_file(args.cvae_ckpt), cvae_cfg, device=dev)
     if args.random_init:
@@ -121,10 +135,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "Src_/Ours_/CM_ triple per clip")
     ap.add_argument("--cha", required=True, help="character BVH")
     ap.add_argument("--gen-ckpt", default=None,
-                    help="generator checkpoint: the reference's .pt or the "
-                         "port trainer's .ckpt (its EMA)")
+                    help="generator checkpoint: the reference's .pt, the "
+                         "JAX package's .msgpack or the port trainer's "
+                         ".ckpt (the last two serve their EMA)")
     ap.add_argument("--cvae-ckpt", default=None,
-                    help="reference CVAE state dict (.pt)")
+                    help="CVAE checkpoint: the reference's state dict "
+                         "(.pt), the JAX package's .msgpack or the port "
+                         "trainer's cvae_*.ckpt")
     ap.add_argument("--cvae-norm", default=None, help="cvae_norm.npz")
     ap.add_argument("--norm", default=None, help="norm.npz (X/Y stats)")
     ap.add_argument("--cnt-norm", default=None, help="cnt_norm.npz")

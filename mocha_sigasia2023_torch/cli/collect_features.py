@@ -8,8 +8,9 @@ subcommands:
                 <name>_feature.npz (windows every frame).
 Both read ``database.bin`` and ``norm.npz`` from ``--data-dir`` and run the
 generator's encoder on the GPU unless ``--device cpu`` is given.  Weights:
-a reference ``.pt`` generator checkpoint (``--gen-ckpt``) or fresh weights
-from a NumPy seed (``--random-init``).
+a generator checkpoint (``--gen-ckpt``: a reference ``.pt``, a JAX package
+``.msgpack`` or a port ``.ckpt``) or fresh weights from a NumPy seed
+(``--random-init``).
 
 Run:
   python -m mocha_sigasia2023_torch.cli.collect_features cnt-norm \\
@@ -39,8 +40,9 @@ def _common(ap):
     ap.add_argument("--config", default=DEFAULT_CONFIG)
     ap.add_argument("--data-dir", required=True)
     ap.add_argument("--gen-ckpt", default=None,
-                    help="generator checkpoint: the reference's .pt or the "
-                         "port trainer's .ckpt (its EMA)")
+                    help="generator checkpoint: the reference's .pt, the "
+                         "JAX package's .msgpack or the port trainer's "
+                         ".ckpt (the last two serve their EMA)")
     ap.add_argument("--random-init", action="store_true",
                     help="fresh weights from a NumPy seed")
     ap.add_argument("--device", default="cuda",

@@ -385,6 +385,20 @@ def fk_vel_bone(lrot, lpos, lvel, lang, parents, bone):
     return gp, gv, gr, ga
 
 
+def ik_look_at(bone_rotation, global_parent_rotation, global_rotation,
+               global_position, child_position, target_position, eps=1e-5):
+    """Aim a joint at a target, branchless: the bone's local rotation that
+    turns its child's direction onto the target's, or ``bone_rotation``
+    where the two already agree within ``eps``."""
+    curr_dir = normalize(child_position - global_position)
+    targ_dir = normalize(target_position - global_position)
+    rotated = inv_mul(global_parent_rotation,
+                      mul(between(curr_dir, targ_dir), global_rotation))
+    needs = (torch.abs(1.0 - torch.sum(curr_dir * targ_dir, dim=-1))
+             > eps)[..., None]
+    return torch.where(needs, rotated, bone_rotation)
+
+
 def ik_two_bone(bone_root_lr, bone_mid_lr, bone_root, bone_mid, bone_end,
                 target, fwd, bone_root_gr, bone_mid_gr, bone_par_gr,
                 max_length_buffer):

@@ -6,7 +6,10 @@ Two sources:
   (out, in), Conv2d (O, I, kh, kw)) and the port's modules use the pytree
   paths as parameter names, so carrying weights across is a flatten to
   dotted keys and a strict ``load_state_dict``.  The pytrees come as nested
-  dicts/lists of NumPy arrays (``jax.tree.map(np.asarray, params)``).
+  dicts/lists of NumPy arrays (``jax.tree.map(np.asarray, params)``), or
+  as the JAX package's msgpack checkpoints read by ``io/msgpack.py``
+  (bf16 leaves as ``torch.bfloat16`` tensors); every leaf loads as
+  float32.
 - The reference's PyTorch checkpoints: the generator trainer's
   ``{'gen', 'gen_ema', 'gen_opt'}`` dict (``gen_125.pt``), the CVAE's
   bare state dict (``cvae_020000.pt``) and the projector's state dict,
@@ -36,6 +39,8 @@ def flatten_pytree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
         items = enumerate(tree)
+    elif torch.is_tensor(tree):
+        return {prefix: tree}
     else:
         return {prefix: np.asarray(tree)}
     out: Dict[str, np.ndarray] = {}
@@ -44,9 +49,14 @@ def flatten_pytree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _float32(v) -> torch.Tensor:
+    if torch.is_tensor(v):
+        return v.detach().to(torch.float32)
+    return torch.as_tensor(np.array(v, np.float32))
+
+
 def _load(module: torch.nn.Module, params_np, device):
-    state = {k: torch.as_tensor(np.array(v, np.float32))
-             for k, v in flatten_pytree(params_np).items()}
+    state = {k: _float32(v) for k, v in flatten_pytree(params_np).items()}
     module.load_state_dict(state, strict=True)
     return module.requires_grad_(False).to(resolve_device(device)).eval()
 

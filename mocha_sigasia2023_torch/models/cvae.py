@@ -1,10 +1,17 @@
-"""Transformer CVAE: autoregressive character-feature predictor (inference).
+"""Transformer CVAE: autoregressive character-feature predictor.
 
 Counterpart of mocha_sigasia2023_tpu/models/cvae.py:28-284 (``mha``, the
 post-norm encoder/decoder layers, the sincos positions, ``prior``,
-``decode``, ``sample``).  Its attention is plain PyTorch, as it is XLA in
-the JAX package.  The posterior's parameters are held so the JAX pytree
-loads whole; serving does not call it.
+``posterior``, ``reparameterize``, ``decode``, ``forward``, ``sample``).
+Its attention is plain PyTorch, as it is XLA in the JAX package, so the
+training forward differentiates on every device.
+
+Training forwards (``train=True``) drop out the attention weights, each
+residual branch, the ReLU output and the position-encoded inputs where a
+``torch.Generator`` is given (in place of the JAX ``key``), each stream
+derived by :func:`layers.split`; they keep every query row of the last
+encoder layer.  Serving (``train=False``) reads the mu/logvar tokens off
+two query rows and never drops out.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .layers import layer_norm, linear, numpy_init_
+from .layers import dropout, layer_norm, linear, numpy_init_, split
 
 
 class CVAEConfig(NamedTuple):
@@ -81,17 +88,32 @@ class CVAE(nn.Module):
         self.decoder = nn.ModuleDict({"layers": nn.ModuleList(
             [_decoder_layer_params(d, ff) for _ in range(cfg.depth)])})
 
+    def forward(self, x, c, generator=None, train=False):
+        """The training forward (module-level :func:`forward`), so that
+        ``torch.func.functional_call`` can run it on cast parameters."""
+        return forward(self, x, c, generator=generator, train=train)
+
 
 def init_cvae(cfg: CVAEConfig = CVAEConfig(), seed: int = 0,
-              device=None) -> CVAE:
-    """A CVAE with random weights drawn from a NumPy seed."""
-    dev = resolve_device(device)
-    return numpy_init_(CVAE(cfg), seed).requires_grad_(False).to(dev).eval()
+              device=None, trainable: bool = False) -> CVAE:
+    """A CVAE with random weights drawn from a NumPy seed: frozen for
+    serving, or with ``trainable`` requiring gradients."""
+    cvae = numpy_init_(CVAE(cfg), seed).to(resolve_device(device))
+    if trainable:
+        return cvae.train()
+    return cvae.requires_grad_(False).eval()
 
 
-def mha(p: MHAParams, query, kv, *, nheads):
+def _streams(generator, n):
+    """``n`` generators split from ``generator``, or ``n`` Nones."""
+    return split(generator, n) if generator is not None else [None] * n
+
+
+def mha(p: MHAParams, query, kv, *, nheads, drop=0.0, generator=None,
+        train=False):
     """torch-compatible multi-head attention with the packed in_proj (one
-    matmul for self-attention, a packed kv matmul for cross-attention)."""
+    matmul for self-attention, a packed kv matmul for cross-attention);
+    in training, dropout on the attention weights."""
     d = query.shape[-1]
     if query is kv:
         qkv = query @ p.in_proj_weight.T + p.in_proj_bias
@@ -110,30 +132,40 @@ def mha(p: MHAParams, query, kv, *, nheads):
     q, k, v = split(q), split(k), split(v)
     attn = torch.softmax(
         torch.einsum("bhnd,bhmd->bhnm", q, k) / math.sqrt(dh), dim=-1)
+    attn = dropout(attn, drop, generator, train)
     out = torch.einsum("bhnm,bhmd->bhnd", attn, v)
     out = out.transpose(1, 2).reshape(b, n, d)
     return linear(p.out_proj, out)
 
 
-def encoder_layer(p, x, *, nheads, out_tokens: Optional[int] = None):
+def encoder_layer(p, x, *, nheads, drop=0.0, generator=None, train=False,
+                  out_tokens: Optional[int] = None):
     """Post-norm TransformerEncoderLayer (relu).  ``out_tokens=n`` computes
     the first n tokens only (keys/values over the whole sequence) — the
     same values as slicing the full layer's output."""
+    g_attn, g_sa, g_relu, g_ff = _streams(generator, 4)
     q_in = x if out_tokens is None else x[:, :out_tokens]
-    sa = mha(p["self_attn"], q_in, x, nheads=nheads)
-    x = layer_norm(p["norm1"], q_in + sa)
-    h = linear(p["linear2"], torch.relu(linear(p["linear1"], x)))
-    return layer_norm(p["norm2"], x + h)
+    sa = mha(p["self_attn"], q_in, x, nheads=nheads, drop=drop,
+             generator=g_attn, train=train)
+    x = layer_norm(p["norm1"], q_in + dropout(sa, drop, g_sa, train))
+    h = dropout(torch.relu(linear(p["linear1"], x)), drop, g_relu, train)
+    h = linear(p["linear2"], h)
+    return layer_norm(p["norm2"], x + dropout(h, drop, g_ff, train))
 
 
-def decoder_layer(p, tgt, memory, *, nheads):
+def decoder_layer(p, tgt, memory, *, nheads, drop=0.0, generator=None,
+                  train=False):
     """Post-norm TransformerDecoderLayer (relu)."""
-    sa = mha(p["self_attn"], tgt, tgt, nheads=nheads)
-    tgt = layer_norm(p["norm1"], tgt + sa)
-    ca = mha(p["multihead_attn"], tgt, memory, nheads=nheads)
-    tgt = layer_norm(p["norm2"], tgt + ca)
-    h = linear(p["linear2"], torch.relu(linear(p["linear1"], tgt)))
-    return layer_norm(p["norm3"], tgt + h)
+    g_sa_attn, g_sa, g_ca_attn, g_ca, g_relu, g_ff = _streams(generator, 6)
+    sa = mha(p["self_attn"], tgt, tgt, nheads=nheads, drop=drop,
+             generator=g_sa_attn, train=train)
+    tgt = layer_norm(p["norm1"], tgt + dropout(sa, drop, g_sa, train))
+    ca = mha(p["multihead_attn"], tgt, memory, nheads=nheads, drop=drop,
+             generator=g_ca_attn, train=train)
+    tgt = layer_norm(p["norm2"], tgt + dropout(ca, drop, g_ca, train))
+    h = dropout(torch.relu(linear(p["linear1"], tgt)), drop, g_relu, train)
+    h = linear(p["linear2"], h)
+    return layer_norm(p["norm3"], tgt + dropout(h, drop, g_ff, train))
 
 
 def sincos_positional_encoding(max_len: int, d_model: int) -> np.ndarray:
@@ -159,35 +191,78 @@ def _pe(n, d, like):
     return _pe_cached(n, d, like.dtype, like.device)
 
 
-def _encode_tokens(p: TokenEncoder, tokens, cfg: CVAEConfig):
+def _encode_tokens(p: TokenEncoder, tokens, cfg: CVAEConfig, *,
+                   generator=None, train=False):
     x = tokens + _pe(tokens.shape[1], cfg.latent_dim, tokens)
     n_layers = len(p.layers)
-    for i, layer in enumerate(p.layers):
-        # only the mu/logvar tokens are read downstream: the last layer
-        # needs 2 query rows
-        out_tokens = 2 if i == n_layers - 1 else None
-        x = encoder_layer(layer, x, nheads=cfg.nheads, out_tokens=out_tokens)
+    g_in, *g_layers = _streams(generator, n_layers + 1)
+    x = dropout(x, cfg.dropout, g_in, train)
+    for i, (layer, g) in enumerate(zip(p.layers, g_layers)):
+        # only the mu/logvar tokens are read downstream: in serving the
+        # last layer needs 2 query rows; training keeps them all, as the
+        # JAX package does (its dropout masks take the full shapes)
+        out_tokens = 2 if (i == n_layers - 1 and not train) else None
+        x = encoder_layer(layer, x, nheads=cfg.nheads, drop=cfg.dropout,
+                          generator=g, train=train, out_tokens=out_tokens)
     return x[:, 0], x[:, 1]
 
 
-def prior(cvae: CVAE, c):
-    """p(z | c) -> (mu, logvar)."""
-    p, cfg = cvae.prior, cvae.cfg
-    b = c.shape[0]
+def _with_tokens(p: TokenEncoder, cfg: CVAEConfig, *rest):
+    b = rest[0].shape[0]
     mu_tok = p.mu_token.expand(b, 1, cfg.latent_dim)
     lv_tok = p.logvar_token.expand(b, 1, cfg.latent_dim)
-    return _encode_tokens(p, torch.cat([mu_tok, lv_tok, c], dim=1), cfg)
+    return torch.cat([mu_tok, lv_tok, *rest], dim=1)
 
 
-def decode(cvae: CVAE, z, c):
+def prior(cvae: CVAE, c, *, generator=None, train=False):
+    """p(z | c) -> (mu, logvar)."""
+    return _encode_tokens(cvae.prior, _with_tokens(cvae.prior, cvae.cfg, c),
+                          cvae.cfg, generator=generator, train=train)
+
+
+def posterior(cvae: CVAE, x, c, *, generator=None, train=False):
+    """q(z | x, c) -> (mu, logvar): the tokens [mu; logvar; c; x]."""
+    return _encode_tokens(cvae.posterior,
+                          _with_tokens(cvae.posterior, cvae.cfg, c, x),
+                          cvae.cfg, generator=generator, train=train)
+
+
+def reparameterize(generator: torch.Generator, mu, logvar):
+    """mu + N(0, 1) * exp(logvar / 2), the noise drawn from ``generator``
+    (on ``mu``'s device)."""
+    if generator is None:
+        raise ValueError("reparameterize: pass a torch.Generator for the "
+                         "noise")
+    std = torch.exp(0.5 * logvar)
+    noise = torch.randn(std.shape, generator=generator, device=std.device,
+                        dtype=std.dtype)
+    return mu + noise * std
+
+
+def decode(cvae: CVAE, z, c, *, generator=None, train=False):
     """Zero queries + sincos positions cross-attending to [z; c]."""
     cfg = cvae.cfg
     b, _, d = c.shape
     memory = torch.cat([z[:, None, :], c], dim=1)
+    g_in, *g_layers = _streams(generator, cfg.depth + 1)
     x = _pe(cfg.output_seq, d, c).expand(b, cfg.output_seq, d)
-    for layer in cvae.decoder["layers"]:
-        x = decoder_layer(layer, x, memory, nheads=cfg.nheads)
+    x = dropout(x, cfg.dropout, g_in, train)
+    for layer, g in zip(cvae.decoder["layers"], g_layers):
+        x = decoder_layer(layer, x, memory, nheads=cfg.nheads,
+                          drop=cfg.dropout, generator=g, train=train)
     return x
+
+
+def forward(cvae: CVAE, x, c, *, generator: torch.Generator, train=False):
+    """Training forward: posterior sample -> decode.  Returns (out,
+    (mu_po, logvar_po), (mu_pr, logvar_pr)).  ``generator`` gives the
+    reparameterization noise and, in training, the dropout masks."""
+    g_po, g_pr, g_rp, g_de = split(generator, 4)
+    mu_po, logvar_po = posterior(cvae, x, c, generator=g_po, train=train)
+    mu_pr, logvar_pr = prior(cvae, c, generator=g_pr, train=train)
+    z = reparameterize(g_rp, mu_po, logvar_po)
+    out = decode(cvae, z, c, generator=g_de, train=train)
+    return out, (mu_po, logvar_po), (mu_pr, logvar_pr)
 
 
 def sample(cvae: CVAE, c, *, deterministic: bool = False,

@@ -76,7 +76,11 @@ def sample_patches(cfg: ProjectorConfig, feat: torch.Tensor,
     if cfg.mode == "style":
         n = feat.shape[1]
         mean = feat.mean(dim=1)
-        var = feat.var(dim=1, correction=0) * (n / max(n - 1, 1))
+        # the variance of the centered tokens, as jnp.var takes it (and
+        # layers.mean_variance_norm): then its gradient sums to zero over
+        # the tokens up to rounding, as the exact one does
+        centered = feat - mean[:, None]
+        var = centered.var(dim=1, correction=0) * (n / max(n - 1, 1))
         # safe_sqrt: a dead channel (var == 0) must not give inf grads
         return torch.cat([safe_sqrt(var), mean], dim=1), None
     return feat.reshape(b, cfg.m_dim * c), None

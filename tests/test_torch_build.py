@@ -2,7 +2,7 @@
 every local header the source includes, and the compiler flags, so an
 edited header rebuilds instead of loading a stale library.  Also
 chip_smoke.py's build list and the launch counts its ``kernels (general)``,
-``dataset`` and ``train`` phases expect, computed from the config and
+``dataset``, ``train`` and ``cvae`` phases expect, computed from the config and
 checked against the launches those phases make when rehearsed on the CPU
 at small widths, and the velocity bar of its dataset parity.  Nothing here
 needs nvcc."""
@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from mocha_sigasia2023_torch.cli import generate_database
+from mocha_sigasia2023_torch.cli import collect_features, generate_database
+from mocha_sigasia2023_torch.data.dataset import MotionDataset
 from mocha_sigasia2023_torch.data.synthetic import make_mocha_bvh_data
 from mocha_sigasia2023_torch.io import bvh
 from mocha_sigasia2023_torch.models import layers
@@ -466,3 +467,61 @@ def test_train_phase_rehearses_on_the_cpu(counted, tmp_path):
     # (1 on frame 0), the 125-window character in one chunk
     assert launches == 2 + (84 * 2 + 1) + 1
     assert result["parity"]["gradients"]["tensors"] == 47
+
+
+def test_cvae_phase_rehearses_on_the_cpu(counted, tmp_path):
+    """The cvae phase at small widths on the CPU, on a dataset phase's
+    files (4 clips of 140 frames: Neutral_Princess and Sad_Princess
+    walking and running; the latter the source, 320 windows each): the
+    source export's exact launches, 7 train_cvae iterations with no
+    attention launched, the card-to-CPU and bf16 checks, and characterize
+    --cvae-ckpt with exactly the tuned launches its windows and frames
+    imply."""
+    import yaml
+
+    widths = dict(SMALL, encoder_dim_head=64, decoder_dim_head=64)
+    config = get_config(os.path.join(REPO, "mocha_sigasia2023_torch",
+                                     "configs", "config.yaml"))
+    config["model"].update(widths, prj_dim=64)
+    config["cvae"].update(CVAE_SMALL, rollout_steps=4, batch_size=4)
+    config.update(log_every=2)
+    path = tmp_path / "config.yaml"
+    path.write_text(yaml.safe_dump(config))
+    root = tmp_path / "run"
+    (root / "bvh").mkdir(parents=True)
+    names = counted.dataset_names(4)
+    assert [n.split("_", 1)[1][:-4] for n in names] == [
+        "Neutral_Princess", "Neutral_Princess", "Sad_Princess",
+        "Sad_Princess"]
+    for i, name in enumerate(names):
+        bvh.save(str(root / "bvh" / f"{name}.bvh"),
+                 make_mocha_bvh_data(T=140, seed=3000 + i))
+    data = str(root / "data")
+    common = ["--data-dir", data, "--random-init", "--device", "cpu",
+              "--config", str(path)]
+    with contextlib.redirect_stdout(None):
+        generate_database.main(["--bvh-dir", str(root / "bvh"), "--out",
+                                data, "--device", "cpu"])
+        MotionDataset(data, device="cpu")
+        collect_features.main(["cnt-norm", *common])
+        collect_features.main([
+            "character", *common, "--styles", str(counted.DATASET_STYLE),
+            "--actions", *map(str, counted.DATASET_CHARACTER_ACTIONS),
+            "--out", str(root / "princess_feature.npz")])
+    cfg = GeneratorConfig(**widths)
+    exp = counted.character_expected(cfg, 18, 4, 140)
+    assert exp == {"ranges": 4, "windows": 320, "launches": 2}
+    result, launches = counted.cvae_phase(
+        cfg, torch.device("cpu"), str(root), config=str(path), iters=7,
+        source_style=18, characterize_clips=2, clips=4, frames=140)
+    assert result["source_export_float32_launches"] == 2
+    assert result["training_launches"] == {
+        "launches": 0, "launches_bf16": 0, "launches_general": 0}
+    assert result["logged_values"] == 7 and result["batch"] == 4
+    for tag in ("student_p 0", "student_p 1"):
+        row = result["parity"][tag]
+        assert row["param_mean_gap"] == 0.0 and row["param_mean_update"] > 0
+    assert result["parity"]["bf16"]["masters_float32"]
+    # 2 clips x 125 windows in one encoder chunk, 125 frames of 2 decodes
+    # (1 on frame 0), the 125-window character in one chunk
+    assert launches == 2 + (124 * 2 + 1) + 1

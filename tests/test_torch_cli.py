@@ -347,10 +347,10 @@ def test_cli_refuses_bad_arguments(pipe, tmp_path):
     tbvh.save(str(mixed / "b.bvh"), other)
     with pytest.raises(SystemExit, match="skeleton differs"):
         tcli.main(_port_args(pipe, tmp_path / "o", "--src-dir", str(mixed)))
-    with pytest.raises(SystemExit, match="R8"):
+    with pytest.raises(SystemExit, match="not a .pt, .msgpack, .ckpt"):
         tcli.main(["--config", str(d / "config.yaml"), "--src",
                    str(d / "src" / "clip_0.bvh"), "--cha", str(d / "cha.bvh"),
-                   "--gen-ckpt", "gen_001.msgpack", "--device", "cpu"])
+                   "--gen-ckpt", "gen_001.orbax", "--device", "cpu"])
     with pytest.raises(SystemExit):   # --tchunk needs --src-dir
         tcli.main(_port_args(pipe, tmp_path / "o", "--src",
                              str(d / "src" / "clip_0.bvh")) + ["--tchunk", "8"])

@@ -1,7 +1,8 @@
 """The port's quaternion ops, FK/IK and contact springs against JAX.
 
 Same inputs (NumPy, from a seed) through mocha_sigasia2023_tpu.kinematics
-and mocha_sigasia2023_torch.kinematics, held at atol 1e-5 (float32).
+and mocha_sigasia2023_torch.kinematics, held at atol 1e-5 (float32); the
+IK solvers and the whole-pose inertializer at 2e-5.
 """
 
 import numpy as np
@@ -200,5 +201,85 @@ def test_spring_helpers():
                                     0.1, 1.0 / 60.0)
     j = jin.decay_spring_damper_rot(jnp.asarray(q), jnp.asarray(v), 0.1,
                                     1.0 / 60.0)
+    for a, b in zip(t, j):
+        _same(a, b)
+
+
+def test_ik_look_at():
+    """A joint aimed at targets around it, with a quarter of the targets
+    already on the child's line (the rotation is then kept)."""
+    rng = _rng(11)
+    n = 32
+    bone, parent_g, glob = (_quats(rng, n) for _ in range(3))
+    pos = rng.randn(n, 3).astype(np.float32)
+    child = pos + rng.randn(n, 3).astype(np.float32) * 0.3
+    target = pos + rng.randn(n, 3).astype(np.float32)
+    target[::4] = pos[::4] + 2.0 * (child[::4] - pos[::4])
+    t, j = _both("ik_look_at", bone, parent_g, glob, pos, child, target)
+    _same(t, j, atol=2e-5)
+    np.testing.assert_array_equal(np.asarray(t)[::4], bone[::4])
+
+
+def _pose_offsets(rng, lead, J):
+    return [rng.randn(*lead, J, 3).astype(np.float32) * 0.1,
+            rng.randn(*lead, J, 3).astype(np.float32) * 0.1,
+            _quats(rng, *lead, J),
+            rng.randn(*lead, J, 3).astype(np.float32) * 0.1]
+
+
+@pytest.mark.parametrize("shape_j", [25, (3, 25)])
+def test_pose_offsets_zeros(shape_j):
+    t = tin.PoseOffsets.zeros(shape_j)
+    j = jin.PoseOffsets.zeros(shape_j)
+    for a, b in zip(t, j):
+        assert tuple(a.shape) == b.shape and a.dtype == torch.float32
+        _same(a, b, atol=0)
+
+
+def test_pose_transition_and_update():
+    """A transition between two seeded poses of the 25-bone rig for 4
+    streams, then 5 ticks of the inertializer toward a third, from seeded
+    offsets."""
+    rng = _rng(12)
+    lead, J = (4,), len(PARENTS)
+    off = _pose_offsets(rng, lead, J)
+    root = [rng.randn(*lead, 3).astype(np.float32), rng.randn(*lead, 3)
+            .astype(np.float32), _quats(rng, *lead),
+            rng.randn(*lead, 3).astype(np.float32)]
+    src = _pose_offsets(rng, lead, J)
+    dst = _pose_offsets(rng, lead, J)
+    args = root + src + dst
+
+    t_off, t_tr = tin.pose_transition(
+        tin.PoseOffsets(*map(torch.as_tensor, off)),
+        *map(torch.as_tensor, args))
+    j_off, j_tr = jin.pose_transition(
+        jin.PoseOffsets(*map(jnp.asarray, off)), *map(jnp.asarray, args))
+    for a, b in zip((*t_off, *t_tr), (*j_off, *j_tr)):
+        _same(a, b, atol=2e-5)
+
+    for tick in range(5):
+        pose = _pose_offsets(rng, lead, J)
+        t_out = tin.pose_update(t_off, *map(torch.as_tensor, pose), t_tr,
+                                0.1, 1.0 / 60.0)
+        j_out = jin.pose_update(j_off, *map(jnp.asarray, pose), j_tr, 0.1,
+                                1.0 / 60.0)
+        for a, b in zip((*t_out[:4], *t_out[4]), (*j_out[:4], *j_out[4])):
+            _same(a, b, atol=2e-5)
+        t_off, j_off = t_out[4], j_out[4]
+
+
+def test_rotation_spring_transition_and_update():
+    rng = _rng(13)
+    q = [_quats(rng, 8) for _ in range(3)]
+    v = [rng.randn(8, 3).astype(np.float32) for _ in range(3)]
+    t, j = _both("transition_rot", q[0], v[0], q[1], v[1], q[2], v[2],
+                 module=(tin, jin))
+    for a, b in zip(t, j):
+        _same(a, b)
+    t = tin.update_rot(*(torch.as_tensor(a) for a in (q[0], v[0], q[1],
+                                                      v[1])), 0.1, 1 / 60.0)
+    j = jin.update_rot(*(jnp.asarray(a) for a in (q[0], v[0], q[1], v[1])),
+                       0.1, 1 / 60.0)
     for a, b in zip(t, j):
         _same(a, b)

@@ -180,6 +180,35 @@ def test_projector_modes_match_jax(mode):
         assert a.tolist() == b.tolist() and len(set(a.tolist())) == 7
 
 
+def test_projector_style_gradient_sums_to_zero_and_matches_jax():
+    """The style mode's (std, mean) of tokens far off zero with a small
+    spread (an offset of 6, a spread of 0.05, 90 tokens, float32): the
+    exact gradient of the std part sums to zero over the tokens, and the
+    port's float32 sum stays within 90 float32 spacings of the largest
+    gradient; the whole output's gradient matches jax.grad of the JAX
+    ``sample_patches``, at the bar of the mean_variance_norm test
+    (tests/test_torch_models.py)."""
+    rng = np.random.RandomState(9)
+    x = (6.0 + 0.05 * rng.randn(8, 90, 64)).astype(np.float32)
+    w = rng.randn(8, 128).astype(np.float32)
+    w_std = w.copy()
+    w_std[:, 64:] = 0.0
+    jcfg = jprj.ProjectorConfig(mode="style", encoder_dim=64)
+    tcfg = tprj.ProjectorConfig(mode="style", encoder_dim=64)
+    for weights in (w, w_std):
+        xt = torch.as_tensor(x).requires_grad_(True)
+        out, _ = tprj.sample_patches(tcfg, xt)
+        (out * torch.as_tensor(weights)).sum().backward()
+        g = xt.grad.numpy()
+        jg = np.asarray(jax.grad(lambda a: jnp.sum(
+            jprj.sample_patches(jcfg, a)[0] * jnp.asarray(weights)))(
+                jnp.asarray(x)))
+        scale = float(np.abs(jg).max())
+        np.testing.assert_allclose(g, jg, rtol=1e-4, atol=1e-5 * scale)
+    bar = 90 * np.finfo(np.float32).eps * scale
+    assert float(np.abs(g.astype(np.float64).sum(axis=1)).max()) <= bar
+
+
 def test_projector_from_torch_matches_jax_converter():
     rng = np.random.RandomState(7)
     sd = {"module.mlp.0.weight": rng.randn(1024, 256),

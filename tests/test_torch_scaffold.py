@@ -45,14 +45,17 @@ def test_import_loads_no_jax():
               "utils.config", "cli.generate_database",
               "cli.collect_features", "io.database", "cli.train",
               "train.trainer", "train.losses", "train.checkpoint",
-              "kinematics.xform", "models.projector", "utils.logging"):
+              "kinematics.xform", "models.projector", "utils.logging",
+              "train.trainer_cvae", "cli.train_cvae", "io.msgpack",
+              "cli.convert_checkpoint"):
         assert "mocha_sigasia2023_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'yaml', 'mocha_sigasia2023_tpu')]\n"
+        "('jax', 'flax', 'optax', 'msgpack', 'yaml', "
+        "'mocha_sigasia2023_tpu')]\n"
         "print(len(sys.modules))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -84,13 +87,14 @@ def test_sources_import_no_jax():
     # chip_smoke.py drives the general kernel and the dataset path too
     smoke = open(files[0]).read()
     for phase in ('"kernels (general)", general_phase',
-                  '"dataset", dataset_phase', '"train", train_phase'):
+                  '"dataset", dataset_phase', '"train", train_phase',
+                  '"cvae", cvae_phase'):
         assert phase in smoke, phase
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax", "yaml",
-                               "mocha_sigasia2023_tpu"), (path, name)
+            assert top not in ("jax", "jaxlib", "flax", "optax", "msgpack",
+                               "yaml", "mocha_sigasia2023_tpu"), (path, name)
         # nor does it join the JAX package's directory into a path
         assert not re.search(r"""['"]mocha_sigasia2023_tpu['"]""",
                              open(path).read()), path
