@@ -21,10 +21,11 @@ card.  Then it takes chip_smoke's parity batch and the trained weights
   divides by, and the smallest spread over the tokens of
   mean_variance_norm's input (out_un) relative to its mean.
 
-Prints one JSON line and writes the whole record to
-chiprun_out/cvae_parity_probe.json.  ``--device cpu --clips 4 --frames
-140 --iters 3 --config <small yaml>`` rehearses it on the CPU (with
---source-style 18: the first 4 clips hold no Neutral_AverageJoe).
+Prints one JSON line and writes the whole record to ``--out``
+(cvae_parity_probe.json in the working directory by default).
+``--device cpu --clips 4 --frames 140 --iters 3 --config <small yaml>
+--source-style 18`` rehearses it on the CPU (the first 4 clips hold no
+Neutral_AverageJoe).
 """
 
 from __future__ import annotations
@@ -38,11 +39,9 @@ import tempfile
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from mocha_sigasia2023_torch.models.layers import split  # noqa: E402
 
 ANNEAL_W = 0.7
 TOP = 8
@@ -134,8 +133,7 @@ def main(argv=None):
     ap.add_argument("--source-style", type=int, default=cs.CVAE_SOURCE_STYLE)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--config", default=cs.characterize.DEFAULT_CONFIG)
-    ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
-                                                  "cvae_parity_probe.json"))
+    ap.add_argument("--out", default="cvae_parity_probe.json")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -198,7 +196,7 @@ def main(argv=None):
         "conditioning": {
             "min_temp_weighted_cha_cnt_std": ccnt_std,
             "min_out_un_spread": {k: v[2] for k, v in first.items()}}}
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({k: v for k, v in result.items()
