@@ -151,6 +151,7 @@ import copy
 import ctypes
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -2024,6 +2025,9 @@ TRAIN_F64_SCALE = 1e-3       # the float64 step's bars: the float32 ones x this
 TRAIN_DECIDES = 1.0 / (1.0 + TRAIN_F64_RATIO)   # the CPU's float32 within
                              # this share of a bar from float64: the float32
                              # comparison decides (see judge)
+TRAIN_JITTERS = 3            # CPU float32 runs from jittered weights: with
+                             # the CPU's own, the samples of float32's reach
+TRAIN_JITTER_SEED = 4100
 TRAIN_LOSSES = ("gen/loss_total", "gen/loss_recon", "gen/loss_nce_cnt",
                 "gen/loss_cyc")
 TRAIN_ACCURACIES = {"gen/cnt_acc_top1": 1, "gen/cnt_acc_top5": 5}
@@ -2189,17 +2193,34 @@ def norm_spreads():
         layers.mean_variance_norm = real
 
 
+def jitter_weights(modules, seed):
+    """Move every weight of ``modules`` one float spacing up or down, the
+    side drawn from ``seed``: a perturbation of the size of one rounding,
+    so that a backward from the moved weights samples the float error the
+    step carries at these weights."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in modules:
+            for p in m.parameters():
+                up = torch.rand(p.shape, generator=g) < 0.5
+                p.copy_(torch.nextafter(p, torch.where(
+                    up, math.inf, -math.inf).to(p)))
+
+
 def parity_backward(config, ckpt_path, bs, bc, norm, seed, device, dtype,
-                    choices=None, step=False):
+                    choices=None, step=False, jitter=None):
     """One backward of the checkpoint's weights on the batches ``bs`` and
     ``bc`` (dropout off) on ``device`` in ``dtype``, replaying the
-    piecewise ``choices`` of another run (None: its own, recorded).
-    Returns the metrics, the gradients and the NCE logits (float64, on the
-    CPU), the PinnedChoices, the least norm_spreads ratio and, with
-    ``step``, whether the weights are finite after update()."""
+    piecewise ``choices`` of another run (None: its own, recorded), the
+    weights moved by :func:`jitter_weights` from the seed ``jitter`` if it
+    is given.  Returns the metrics, the gradients and the NCE logits
+    (float64, on the CPU), the PinnedChoices, the least norm_spreads ratio
+    and, with ``step``, whether the weights are finite after update()."""
     t = GeneratorTrainer(dict(config, dropout=False), 1, seed=seed,
                          device=device)
     t.load(ckpt_path)
+    if jitter is not None:
+        jitter_weights((t.gen, t.prj), jitter)
     if dtype == torch.float64:
         t.gen.double()
         t.prj.double()
@@ -2221,39 +2242,114 @@ def parity_backward(config, ckpt_path, bs, bc, norm, seed, device, dtype,
     return out
 
 
-def judge(d32, c32, c64, d64, bound32, bound64):
+def judge(d32, c32, c64, d64, bound32, bound64, jittered=()):
     """A quantity of the step against its bars (elementwise tensors of
     tolerances: ``bound32`` from the CPU's float32 values, ``bound64``
     from float64's): the float32 card-to-CPU gap (``of_bar``), the CPU's
-    float32 distance to float64 (``cpu_f64_of_bar``) and the float64
-    card-to-CPU gap over TRAIN_F64_SCALE x ``bound64`` (``f64_of_bar``),
-    each as its largest share of the bar.  The float32 comparison decides
-    where the CPU's float32 lies within TRAIN_DECIDES = 1 / (1 +
-    TRAIN_F64_RATIO) of its bar from float64: there the bar leaves the
-    card at least TRAIN_F64_RATIO times the CPU's distance to float64, as
-    the ratio gate does.  A CPU farther off marks a quantity that float32
-    does not resolve at this step (two float32 runs land several times
-    apart there), and the float64 comparison decides it.  The float64
-    comparison always holds.  Returns (row, failed)."""
+    float32 distance to float64 (``cpu_f64_of_bar``), the farthest of the
+    CPU's float32 runs from ``jittered`` weights (``jittered_f64_of_bar``)
+    and the float64 card-to-CPU gap over TRAIN_F64_SCALE x ``bound64``
+    (``f64_of_bar``), each as its largest share of the bar.  The float32
+    comparison decides where every CPU float32 run lies within
+    TRAIN_DECIDES = 1 / (1 + TRAIN_F64_RATIO) of its bar from float64:
+    there the bar leaves the card at least TRAIN_F64_RATIO times the
+    CPU's distance to float64, as the ratio gate does.  A CPU run farther
+    off marks a quantity that float32 does not resolve at this step (two
+    float32 runs land several times apart there), and the float64
+    comparison decides it.  The float64 comparison always holds.  Returns
+    (row, failed)."""
     row = {"of_bar": float(((d32 - c32).abs() / bound32).max()),
            "cpu_f64_of_bar": float(((c32 - c64).abs() / bound64).max()),
+           "jittered_f64_of_bar": max(
+               (float(((j - c64).abs() / bound64).max()) for j in jittered),
+               default=0.0),
            "f64_of_bar": float(((d64 - c64).abs()
                                 / (TRAIN_F64_SCALE * bound64)).max())}
-    row["decided"] = row["cpu_f64_of_bar"] <= TRAIN_DECIDES
+    row["decided"] = max(row["cpu_f64_of_bar"],
+                         row["jittered_f64_of_bar"]) <= TRAIN_DECIDES
     failed = ((row["decided"] and row["of_bar"] > 1.0)
               or row["f64_of_bar"] > 1.0)
     return row, failed
 
 
+def gradient_gate(g_d, g_c, g64, g_d64, jit, dev, failures, undecided):
+    """The training step's gradients (dicts of float64 tensors by name:
+    ``dev``'s float32, the CPU's, float64 on the CPU and on ``dev``, and
+    ``jit``, the CPU's float32 runs from jittered weights) against their
+    bars, as :func:`train_parity` holds them.  Appends what fails to
+    ``failures`` and what float64 alone decides to ``undecided``; returns
+    the rows by tensor, the distance ratios and their median."""
+    # the gradients: each tensor's bar scaled by its own largest |g|; a
+    # tensor whose float64 gradient vanishes (decoder layer 0's ff.w2.bias,
+    # removed by layer 1's instance norm) carries only rounding on every
+    # device and takes its atol from the model's largest |g|
+    gscale = max(float(g.abs().max()) for g in g_c.values())
+    gscale64 = max(float(g.abs().max()) for g in g64.values())
+    eps = float(torch.finfo(torch.float32).eps)
+    per_tensor = {}
+    for name, c in g_c.items():
+        scale, scale64 = float(c.abs().max()), float(g64[name].abs().max())
+        vanishes = scale64 < TRAIN_GRAD_VANISH * gscale64
+        row, failed = judge(
+            g_d[name], c, g64[name], g_d64[name],
+            TRAIN_GRAD_RTOL * c.abs()
+            + TRAIN_GRAD_ATOL * (gscale if vanishes else scale),
+            TRAIN_GRAD_RTOL * g64[name].abs()
+            + TRAIN_GRAD_ATOL * (gscale64 if vanishes else scale64),
+            [j[name] for j in jit])
+        row.update({
+            "max_abs": float((g_d[name] - c).abs().max()), "max_g": scale,
+            "max_g_f64": scale64, "vanishes": vanishes,
+            "f64_" + dev: float((g_d[name] - g64[name]).abs().max()),
+            "f64_cpu": float((c - g64[name]).abs().max()),
+            "f64_cpu_jittered": max((float((j[name] - g64[name]).abs().max())
+                                     for j in jit), default=0.0)})
+        row["f64_cpu_reach"] = max(row["f64_cpu"], row["f64_cpu_jittered"])
+        row["f64_ratio"] = None if vanishes else (
+            row["f64_" + dev] / (row["f64_cpu_reach"] + eps * scale64))
+        row["f64_ratio_to_cpu"] = None if vanishes else (
+            row["f64_" + dev] / (row["f64_cpu"] + eps * scale64))
+        per_tensor[name] = row
+        if failed:
+            failures.append(f"gradient {name} off (max |g| {scale:.3e}): "
+                            f"{json.dumps(row)}")
+        if not row["decided"]:
+            undecided.append(f"gradient {name}")
+    # against float64, each tensor's card distance over the farthest CPU
+    # float32 run's (plus a float32 spacing at its scale): a fault hiding
+    # within the bar, or in a tensor that float32 does not resolve, shows
+    # as a tensor out of line with the rest.  One CPU run is one sample of
+    # float32's error and may land far closer to float64 than float32's
+    # reach at an ill-conditioned tensor (a decoder AdaIN near gain 0:
+    # 1.2e-8 once, 4.2e-6 in another run); the jittered runs sample it
+    # again.  The card's float32 may be uniformly less exact than the
+    # CPU's, by a factor that moves with the kernels it picks; a uniformly
+    # more exact card raises no bar
+    ratios = {n: r["f64_ratio"] for n, r in per_tensor.items()
+              if r["f64_ratio"] is not None}
+    median = float(np.median(list(ratios.values())))
+    for name, ratio in ratios.items():
+        if ratio > TRAIN_F64_RATIO * max(1.0, median):
+            failures.append(
+                f"gradient {name} {per_tensor[name]['f64_' + dev]:.3e}"
+                f" from float64 on {dev}, {ratio:.2f}x the farthest "
+                f"CPU float32 run's {per_tensor[name]['f64_cpu_reach']:.3e},"
+                f" over {TRAIN_F64_RATIO} x max(1, the median ratio "
+                f"{median:.3f})")
+    return per_tensor, ratios, median
+
+
 def train_parity(config, ckpt_path, ds, dev, seed):
     """One step of the checkpoint's weights on ``dev`` and on the CPU on
-    the same batch (dropout off), in float32 and in float64, the CPU and
-    both float64 runs replaying the card's piecewise choices.  Held (see
-    :func:`judge`): each loss within TRAIN_LOSS_RTOL, the NCE logits within
-    TRAIN_LOSS_RTOL of the largest positive, each gradient before the clip
-    within TRAIN_GRAD_RTOL / TRAIN_GRAD_ATOL x the tensor's largest |g|;
-    no gradient's card-to-CPU distance ratio to float64 over
-    TRAIN_F64_RATIO x max(1, the ratios' median); each top-k accuracy
+    the same batch (dropout off), in float32 and in float64, and
+    TRAIN_JITTERS CPU float32 backwards from jittered weights, the CPU's,
+    the jittered and both float64 runs replaying the card's piecewise
+    choices.  Held (see :func:`judge`): each loss within TRAIN_LOSS_RTOL,
+    the NCE logits within TRAIN_LOSS_RTOL of the largest positive, each
+    gradient before the clip within TRAIN_GRAD_RTOL / TRAIN_GRAD_ATOL x
+    the tensor's largest |g|; no gradient's distance to float64 on the
+    card over the farthest CPU float32 run's past TRAIN_F64_RATIO x
+    max(1, the ratios' median); each top-k accuracy
     within the share of rows that the
     logits' measured gap can flip; the stepped weights finite on both.
     Returns (gaps, the failures)."""
@@ -2265,6 +2361,9 @@ def train_parity(config, ckpt_path, ds, dev, seed):
     choices = d32["pin"].choices
     c32 = (d32 if dev == cpu else
            parity_backward(*common, cpu, torch.float32, choices, step=True))
+    jit = [parity_backward(*common, cpu, torch.float32, choices,
+                           jitter=TRAIN_JITTER_SEED + k)
+           for k in range(TRAIN_JITTERS)]
     c64 = parity_backward(*common, cpu, torch.float64, choices)
     d64 = (c64 if dev == cpu else
            parity_backward(*common, dev, torch.float64, choices))
@@ -2274,7 +2373,8 @@ def train_parity(config, ckpt_path, ds, dev, seed):
     gaps = {"pinned_choices": {
         "elements": sum(c.numel() for c in choices),
         "flips": {"cpu": c32["pin"].flips, "float64": c64["pin"].flips,
-                  f"float64 on {dev.type}": d64["pin"].flips}},
+                  f"float64 on {dev.type}": d64["pin"].flips,
+                  "cpu jittered": [r["pin"].flips for r in jit]}},
         "least_norm_spread": {"float32": d32["spread"],
                               "float64": c64["spread"]}}
 
@@ -2289,7 +2389,9 @@ def train_parity(config, ckpt_path, ds, dev, seed):
         vals = [torch.tensor(r["metrics"][name], dtype=torch.float64)
                 for r in (d32, c32, c64, d64)]
         row, failed = judge(*vals, TRAIN_LOSS_RTOL * vals[1].abs(),
-                            TRAIN_LOSS_RTOL * vals[2].abs())
+                            TRAIN_LOSS_RTOL * vals[2].abs(),
+                            [torch.tensor(r["metrics"][name],
+                                          dtype=torch.float64) for r in jit])
         row.update({dev.type: float(vals[0]), "cpu": float(vals[1]),
                     "float64": float(vals[2])})
         gaps[name] = row
@@ -2297,7 +2399,8 @@ def train_parity(config, ckpt_path, ds, dev, seed):
     logits = [r["logits"] for r in (d32, c32, c64, d64)]
     row, failed = judge(*logits, *(TRAIN_LOSS_RTOL * float(l[:, 0].abs()
                                                            .max())
-                                   for l in logits[1:3]))
+                                   for l in logits[1:3]),
+                        [r["logits"] for r in jit])
     noise = float((logits[0] - logits[1]).abs().max())
     row["max_abs"] = noise
     gaps["nce_logits"] = row
@@ -2312,61 +2415,23 @@ def train_parity(config, ckpt_path, ds, dev, seed):
             failures.append(f"{name} {a} on {dev.type}, {b} on the CPU, "
                             f"over its bar {bar} ({ties} rows within "
                             f"{2 * noise:.3e} of a flip)")
-    # the gradients: each tensor's bar scaled by its own largest |g|; a
-    # tensor whose float64 gradient vanishes (decoder layer 0's ff.w2.bias,
-    # removed by layer 1's instance norm) carries only rounding on every
-    # device and takes its atol from the model's largest |g|
     g_d, g_c, g64, g_d64 = (r["grads"] for r in (d32, c32, c64, d64))
+    per_tensor, ratios, median = gradient_gate(
+        g_d, g_c, g64, g_d64, [r["grads"] for r in jit], dev.type, failures,
+        undecided)
     gscale = max(float(g.abs().max()) for g in g_c.values())
-    gscale64 = max(float(g.abs().max()) for g in g64.values())
-    eps = float(torch.finfo(torch.float32).eps)
-    per_tensor = {}
-    for name, c in g_c.items():
-        scale, scale64 = float(c.abs().max()), float(g64[name].abs().max())
-        vanishes = scale64 < TRAIN_GRAD_VANISH * gscale64
-        row, failed = judge(
-            g_d[name], c, g64[name], g_d64[name],
-            TRAIN_GRAD_RTOL * c.abs()
-            + TRAIN_GRAD_ATOL * (gscale if vanishes else scale),
-            TRAIN_GRAD_RTOL * g64[name].abs()
-            + TRAIN_GRAD_ATOL * (gscale64 if vanishes else scale64))
-        row.update({
-            "max_abs": float((g_d[name] - c).abs().max()), "max_g": scale,
-            "max_g_f64": scale64, "vanishes": vanishes,
-            "f64_" + dev.type: float((g_d[name] - g64[name]).abs().max()),
-            "f64_cpu": float((c - g64[name]).abs().max())})
-        row["f64_ratio"] = None if vanishes else (
-            row["f64_" + dev.type] / (row["f64_cpu"] + eps * scale64))
-        per_tensor[name] = row
-        held(f"gradient {name}", row, failed,
-             f"off (max |g| {scale:.3e})")
-    # against float64, each tensor's card distance over the CPU's (plus a
-    # float32 spacing at its scale): a fault hiding within the bar, or in a
-    # tensor that float32 does not resolve, shows as a tensor out of line
-    # with the rest.  The card's float32 may be uniformly less exact than
-    # the CPU's, by a factor that moves with the kernels it picks; a
-    # uniformly more exact card raises no bar
-    ratios = {n: r["f64_ratio"] for n, r in per_tensor.items()
-              if r["f64_ratio"] is not None}
-    median = float(np.median(list(ratios.values())))
-    for name, ratio in ratios.items():
-        if ratio > TRAIN_F64_RATIO * max(1.0, median):
-            failures.append(
-                f"gradient {name} {per_tensor[name]['f64_' + dev.type]:.3e}"
-                f" from float64 on {dev.type}, {ratio:.2f}x the CPU's "
-                f"{per_tensor[name]['f64_cpu']:.3e}, over "
-                f"{TRAIN_F64_RATIO} x max(1, the median ratio {median:.3f})")
     gaps["gradients"] = {
         "tensors": len(g_c), "max_g_all": gscale,
         "vanishing": sorted(n for n, r in per_tensor.items()
                             if r["vanishes"]),
-        "f64_ratio_median": median}
+        "f64_ratio_median": median, "jittered_runs": TRAIN_JITTERS}
     gaps["decided_in_float64_alone"] = undecided
     gaps["float32_misses"] = sorted(n for n, r in per_tensor.items()
                                     if r["of_bar"] > 1.0)
     for key, among in (("of_bar", per_tensor), ("f64_of_bar", per_tensor),
                        ("cpu_f64_of_bar", per_tensor),
-                       ("f64_ratio", ratios)):
+                       ("jittered_f64_of_bar", per_tensor),
+                       ("f64_ratio", ratios), ("f64_ratio_to_cpu", ratios)):
         worst = max(among, key=lambda n: per_tensor[n][key])
         gaps["gradients"]["worst_" + key] = {"tensor": worst,
                                              **per_tensor[worst]}

@@ -11,7 +11,8 @@ which one channel of the last decoder layer's AdaIN applies the gain
 1 + gamma = g and the shift beta = 1 to every sample (those channels' fc2
 weight rows zeroed, their biases g - 1 and 1), and runs
 chip_smoke.train_parity on it: one step at batch 8 on the card and on the
-CPU, in float32 and in float64.  The AdaIN's output in that channel is
+CPU, in float32 and in float64, and the CPU's float32 runs from
+jittered weights.  The AdaIN's output in that channel is
 then 1 plus g times the normalized input, and float32 keeps about g of
 its spread (trained weights reach such gains: beta of order 1, gamma
 from -1.4 to 1.4 after an epoch, scripts/train_grad_probe.py): the last
@@ -61,14 +62,18 @@ def summary(gain, gaps, failures):
     return {
         "gain": gain,
         "float32_worst": {k: grads["worst_of_bar"][k] for k in (
-            "tensor", "of_bar", "cpu_f64_of_bar", "decided")},
+            "tensor", "of_bar", "cpu_f64_of_bar", "jittered_f64_of_bar",
+            "decided")},
         "float32_misses": gaps["float32_misses"],
         "decided_in_float64_alone": gaps["decided_in_float64_alone"],
         "float64_worst": {k: grads["worst_f64_of_bar"][k] for k in (
             "tensor", "f64_of_bar")},
         "f64_ratio_median": grads["f64_ratio_median"],
         "worst_f64_ratio": {k: grads["worst_f64_ratio"][k] for k in (
-            "tensor", "f64_ratio", "decided")},
+            "tensor", "f64_ratio", "f64_ratio_to_cpu", "decided")},
+        "worst_f64_ratio_to_cpu": {k: grads["worst_f64_ratio_to_cpu"][k]
+                                   for k in ("tensor", "f64_ratio",
+                                             "f64_ratio_to_cpu")},
         "least_norm_spread": gaps["least_norm_spread"],
         "failures": failures}
 

@@ -395,6 +395,85 @@ def test_parity_judge_decides_in_float32_where_the_cpu_meets_float64(
     assert 5e-5 < seen[0] < 2e-4
 
 
+@pytest.mark.parametrize("case", ["lucky_cpu", "card_offset"])
+def test_gradient_gate_holds_the_card_to_the_farthest_cpu_run(smoke, case):
+    """chip_smoke.gradient_gate on synthetic gradients: 12 tensors whose
+    float32 runs scatter by rounding about float64.  ``lucky_cpu``: one
+    tensor is ill-conditioned (the card and the jittered CPU runs 3e-7
+    from float64), and the CPU's own run happens to land 1e-8 from it;
+    held to that run alone, the tensor reads 30x out of line (the refused
+    reading), held to the farthest CPU run it passes.  ``card_offset``:
+    the card's float32 gradient of one tensor is off by 1e-4 of its
+    values, inside the float32 bar, and the gate fails it with and
+    without the jittered runs."""
+    rng = np.random.RandomState(7)
+    names = [f"t{i}" for i in range(12)]
+    g64 = {n: torch.as_tensor(1e-2 * rng.randn(64)) for n in names}
+
+    def near(sigma, **wide):
+        return {n: g64[n] + wide.get(n, sigma) * torch.as_tensor(
+            rng.randn(64)) for n in names}
+
+    jit = [near(1e-9, t0=3e-7) for _ in range(3)]
+    cpu = near(1e-9, t0=1e-8)
+    card = near(1e-9, t0=3e-7)
+    if case == "card_offset":
+        card["t5"] = card["t5"] + 1e-4 * g64["t5"]
+    card64 = near(1e-15)
+    for sampled, want in ((jit, case == "card_offset"), ([], True)):
+        failures, undecided = [], []
+        rows, ratios, median = smoke.gradient_gate(
+            card, cpu, g64, card64, sampled, "cuda", failures, undecided)
+        assert bool(failures) == want, failures
+        assert rows["t0"]["f64_ratio_to_cpu"] > 20.0
+        if case == "card_offset":
+            assert any("gradient t5 " in f for f in failures), failures
+            assert rows["t5"]["of_bar"] < 1.0 and ratios["t5"] > 100.0
+        if sampled:
+            assert ratios["t0"] < 2.0 and rows["t0"]["f64_cpu_reach"] > 5e-7
+            assert "gradient t0" in undecided
+        else:
+            assert ratios["t0"] > 20.0
+
+
+def test_jitter_weights_moves_each_weight_one_spacing(smoke):
+    """chip_smoke.jitter_weights: every weight moves to its float
+    neighbour, up or down as the seed draws, the same for the same
+    seed."""
+    def moved(seed):
+        torch.manual_seed(0)
+        m = torch.nn.Linear(16, 8)
+        before = [p.detach().clone() for p in m.parameters()]
+        smoke.jitter_weights([m], seed)
+        return before, [p.detach().clone() for p in m.parameters()]
+
+    before, after = moved(3)
+    for b, a in zip(before, after):
+        up = torch.nextafter(b, torch.full_like(b, float("inf")))
+        down = torch.nextafter(b, torch.full_like(b, -float("inf")))
+        assert bool(((a == up) | (a == down)).all())
+        assert 0 < int((a == up).sum()) < a.numel()
+    again = moved(3)[1]
+    assert all(torch.equal(a, b) for a, b in zip(after, again))
+    assert not all(torch.equal(a, b) for a, b in zip(after, moved(4)[1]))
+
+
+def test_parity_judge_reads_the_jittered_runs(smoke):
+    """chip_smoke.judge: a jittered CPU float32 run farther than
+    TRAIN_DECIDES of the bar from float64 leaves the quantity to float64,
+    even where the CPU's own run meets float64."""
+    g64 = torch.tensor([1.0, -2.0, 0.5], dtype=torch.float64)
+    bar = torch.full_like(g64, 1e-3)
+    c32 = g64 + 1e-5
+    row, failed = smoke.judge(c32 + 2e-3, c32, g64, g64, bar, bar,
+                              [g64 - 1e-5, g64 + 5e-4])
+    assert not row["decided"] and not failed
+    assert row["jittered_f64_of_bar"] == pytest.approx(0.5)
+    row, failed = smoke.judge(c32 + 2e-3, c32, g64, g64, bar, bar,
+                              [g64 - 1e-5])
+    assert row["decided"] and failed
+
+
 def test_velocity_bar_follows_the_positions_gap(smoke):
     """chip_smoke's velocity parity: implied_velocity_gap is featurize's
     central difference of the positions' gap, range by range, so two
