@@ -137,7 +137,29 @@ Phases (any failure exits non-zero; each prints its wall time):
      characterize --src-dir on 4 of the phase's clips with --cvae-ckpt
      on the written cvae_000040.ckpt and its cvae_norm.npz: exactly the
      tuned launches its windows and frames imply, every output finite.
-  The general kernel's counter stays at 0 through phases 4-12: the
+  13. parallel (on the dataset phase's files): the parallel
+     layer on torch.distributed, 2 ranks spawned on one card under gloo
+     (parallel.spawn; the ranks load the kernels built in phase 2).
+     Sharded serving: the slice's 64 x 240 streams, CVAE on and not
+     deterministic, 32 streams a rank through stream.run_sharded,
+     gathered, against the single-process runner with the same weights,
+     inputs and generator seed: every output within 1e-3 (the largest
+     with its (frame, stream) printed), identical picks, each rank's
+     launches exactly its shard's; each rank's step-loop frames/s and the
+     gathered e2e frames/s, two processes sharing one card.  Training: the
+     first step's gradients of 2 ranks (32 samples each) against one
+     process (rtol 1e-4 / atol 1e-5 x the largest, no attention launch);
+     cli/train --data-parallel 2 against --data-parallel 1 for one epoch
+     (10 steps of 64) on 6 of the dataset's clips, every step logged:
+     losses within rtol 2e-3 (NCE 2e-2), the EMA within atol 5e-5 x
+     scale / rtol 2e-4; the parameters at that bar and the Adam moments
+     at the gradient bar, held to float32's reach on the card (the
+     1-process run against its own repeat and 2 runs from weights moved
+     one float spacing: the repeat alone parts by more than the bar)
+     times 2; steps/s and samples/s; one nccl rank
+     (--data-parallel 1 --backend nccl) for 3 steps.  Then characterize
+     --gen-ckpt on the 2-rank checkpoint, launches exact.
+  The general kernel's counter stays at 0 through phases 4-13: the
   shipped config never leaves the tuned kernels.
 
 The line before the last is a JSON object describing every kernel; the
@@ -166,6 +188,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.overrides import TorchFunctionMode  # noqa: E402
@@ -188,13 +211,16 @@ from mocha_sigasia2023_torch.models import layers  # noqa: E402
 from mocha_sigasia2023_torch.models.generator import (  # noqa: E402
     GeneratorConfig, content_feature, init_generator)
 from mocha_sigasia2023_torch.ops import attention, build  # noqa: E402
+from mocha_sigasia2023_torch.parallel import distributed  # noqa: E402
+from mocha_sigasia2023_torch.parallel.mesh import (  # noqa: E402
+    make_mesh, shard_batch)
 from mocha_sigasia2023_torch.runtime import export  # noqa: E402
 from mocha_sigasia2023_torch.runtime import features as rtf  # noqa: E402
 from mocha_sigasia2023_torch.runtime.live import (  # noqa: E402
     LiveCharacterizer)
 from mocha_sigasia2023_torch.runtime.stream import (  # noqa: E402
-    build_consts, cast_database, make_batch_runner, stack_consts,
-    stack_stream_inputs)
+    build_consts, cast_database, make_batch_runner, run_sharded,
+    stack_consts, stack_stream_inputs)
 from mocha_sigasia2023_torch.train import checkpoint as train_ckpt  # noqa: E402
 from mocha_sigasia2023_torch.train.trainer import (  # noqa: E402
     GeneratorTrainer)
@@ -2887,6 +2913,497 @@ def cvae_phase(cfg, dev, root, *, config=None, iters=CVAE_ITERS,
     return result, char_launches
 
 
+# ---------------------------------------------------------------------------
+# parallel: sharded serving and data-parallel training on torch.distributed
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 2
+PARALLEL_SEED = 300          # the CVAE noise's generator
+PARALLEL_TOL = 1e-3          # a stream to another runner's (PERF.md §2)
+DP_CLIPS = 6                 # 696 windows: 10 steps at batch 64
+NCCL_CLIPS = 2               # 232 windows: 3 steps
+DP_WARMUP = 2                # steps left out of the period median
+PARALLEL_CHARACTERIZE_CLIPS = 2
+DP_LOSS_RTOL = {"gen/loss_total": 2e-3, "gen/loss_recon": 2e-3,
+                "gen/loss_nce_cnt": 2e-2, "gen/loss_cyc": 2e-3}
+# tests/test_torch_train.py: parameters after the steps (:198-214), a
+# step's gradients (:160-168)
+DP_PARAM_ATOL, DP_PARAM_RTOL = 5e-5, 2e-4
+DP_GRAD_RTOL, DP_GRAD_ATOL = 1e-4, 1e-5
+# After 10 AdamW steps on the card the 1-process trainer parts from its own
+# repeat by more than the parameter bar (hundreds of elements, up to 0.73
+# lr): Adam divides each element's step by its gradient's root mean
+# square, and float32's rounding differs run to run on the card.  The
+# 2-rank run is held to that reach: the farthest of a repeat and
+# DP_REACH_JITTERS runs from weights moved one float spacing, times
+# DP_REACH_FACTOR (the EMA, the losses and the first step's gradients
+# stay on their bars).
+DP_REACH_JITTERS = 2
+DP_REACH_FACTOR = 2.0
+
+
+def no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def serving_setup(cfg, cvae_cfg, dev, streams, frames, db_windows):
+    """The slice's weights, character and clips, as slice_phase makes
+    them."""
+    gen = init_generator(cfg, seed=0, device=dev)
+    cvae = init_cvae(cvae_cfg, seed=1, device=dev)
+    norm, consts, parents = character_setup(gen, db_windows, dev)
+    clips = [make_mocha_bvh_data(T=frames + WINDOW_PAD, seed=i)
+             for i in range(streams)]
+    return gen, cvae, norm, consts, parents, clips
+
+
+def sharded_serving(spec, dev, mesh):
+    """One rank of sharded serving: its block of the clips featurized and
+    encoded, then stream.run_sharded with the CVAE on; a warm-up, then the
+    counted run.  Returns its times and launches and, on rank 0, the
+    gathered outputs."""
+    gen, cvae, norm, consts, parents, clips = serving_setup(
+        spec["cfg"], spec["cvae_cfg"], dev, spec["streams"],
+        spec["frames"], spec["db_windows"])
+    mine = shard_batch(mesh, clips)
+    runner = make_batch_runner(gen, cvae, consts, parents,
+                               deterministic=False,
+                               root_dtype=torch.float32, device=dev)
+
+    def drive():
+        sync(dev)
+        t0 = time.perf_counter()
+        frame0, xs = rtf.batch_stream_features_device(
+            mine, gen, norm, window=gen.cfg.nframes, emit_cnt=False,
+            device=dev)
+        sync(dev)
+        t1 = time.perf_counter()
+        spent = {}
+
+        def timed(*args, **kw):     # the step loop, to this rank's outputs
+            t = time.perf_counter()
+            o = runner(*args, **kw)
+            sync(dev)
+            spent["s"] = time.perf_counter() - t
+            return o
+
+        out = run_sharded(timed, mesh, frame0, xs,
+                          torch.Generator(device=dev).manual_seed(
+                              spec["seed"]))
+        sync(dev)
+        return out, t1 - t0, spent["s"], time.perf_counter() - t0
+
+    drive()
+    reset_launches()
+    out, feat_s, run_s, e2e_s = drive()
+    result = {"streams": len(mine), "launches": all_launches(),
+              "featurize_s": feat_s, "runner_s": run_s, "e2e_s": e2e_s,
+              "step_loop_frames_per_s": len(mine) * spec["frames"] / run_s}
+    if distributed.is_primary_host():
+        result["outputs"] = {k: v.cpu() for k, v in out.items()}
+    return result
+
+
+def dp_backward(spec, dev, mesh):
+    """cli/train's first step at its starting weights: the trainer from
+    the config's seed, the first source and character batches and the
+    first dropout key, on this rank's block of the global batch (all of
+    it without a mesh).  Returns the metrics, the gradients (on the CPU)
+    and the attention launches."""
+    config = get_config(spec["config"])
+    ds = MotionDataset(spec["data"], device=dev)
+    seed = int(config.get("manualSeed", 1777))
+    batch = int(config["batch_size"])
+    trainer = GeneratorTrainer(config, max(len(ds) // batch, 1), seed=seed,
+                               device=dev, mesh=mesh)
+    bs, bc = (next(iterate_batches(ds, batch, shuffle=True, seed=s,
+                                   epoch=0)) for s in (seed, seed + 10_000))
+    _, key = layers.split(torch.Generator().manual_seed(seed), 2)
+    reset_launches()
+    metrics, _ = trainer.backward(
+        *({k: shard_batch(mesh, b[k]) for k in train_cli.BATCH_KEYS}
+          for b in (bs, bc)), ds.norm, key)
+    sync(dev)
+    grads = {f"{part}.{n}": p.grad.cpu() for part, module in
+             (("gen", trainer.gen), ("prj", trainer.prj))
+             for n, p in module.named_parameters()}
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": grads, "launches": all_launches()}
+
+
+def parallel_rank(rank, dev, spec):
+    """One rank of the parallel phase's launch (parallel.spawn): sharded
+    serving, then the data-parallel gradients; saved to ``spec["out"]``."""
+    no_tf32()
+    mesh = make_mesh(device_type=dev.type)
+    out = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "serving": sharded_serving(spec["serving"], dev, mesh),
+           "train": dp_backward(spec["train"], dev, mesh)}
+    torch.save(out, spec["out"].format(rank=rank))
+
+
+def subset_database(root, names, data, dev):
+    """generate_database into ``data`` over the dataset phase's BVH files
+    ``names`` (in ``root/bvh``)."""
+    src = data + "_bvh"
+    os.makedirs(src)
+    for n in names:
+        shutil.copy(os.path.join(root, "bvh", n + ".bvh"), src)
+    quiet(generate_database.main, ["--bvh-dir", src, "--out", data,
+                                   "--device", dev.type])
+    return data
+
+
+def every_step_config(config, path):
+    """A copy of the config file that logs every step."""
+    text = open(config).read()
+    if re.search(r"(?m)^log_every:", text):
+        text = re.sub(r"(?m)^log_every:.*$", "log_every: 1", text)
+    else:
+        text += "\nlog_every: 1\n"
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+class JitteredTrainer(GeneratorTrainer):
+    """A GeneratorTrainer whose starting weights are moved one float
+    spacing (jitter_weights with ``seed``)."""
+
+    seed = None
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        jitter_weights([self.gen, self.prj], self.seed)
+
+
+def train_run(work, args, jitter_seed=None):
+    """cli/train.main(args) from ``work`` (from weights moved one float
+    spacing with ``jitter_seed``); returns (its wall seconds, the
+    checkpoint, {tag: [(step, value, time)]} of rank 0's metrics)."""
+    os.makedirs(work)
+    real = train_cli.GeneratorTrainer
+    if jitter_seed is not None:
+        JitteredTrainer.seed = jitter_seed
+        train_cli.GeneratorTrainer = JitteredTrainer
+    try:
+        with contextlib.chdir(work):
+            _, wall, _ = quiet(train_cli.main, args)
+    finally:
+        train_cli.GeneratorTrainer = real
+    name = get_config(args[args.index("--config") + 1])["name"]
+    model = os.path.join(work, name)
+    path = train_ckpt.latest_checkpoint(os.path.join(model, "pth"))
+    check(path is not None, f"train in {work}: no checkpoint")
+    recs = {}
+    for line in open(os.path.join(model, "log", "train", "metrics.jsonl")):
+        r = json.loads(line)
+        recs.setdefault(r["tag"], []).append((r["step"], r["value"],
+                                              r["time"]))
+    return wall, path, {k: sorted(v) for k, v in recs.items()}
+
+
+def step_rate(recs, batch):
+    """Steps/s and samples/s from rank 0's logged times of loss_total
+    (every step logged: each a step's end, after its metrics' sync), the
+    median period after DP_WARMUP steps."""
+    times = [t for _, _, t in recs["gen/loss_total"]]
+    period = float(np.median(np.diff(times)[DP_WARMUP:]))
+    return {"steps_per_s": 1.0 / period, "samples_per_s": batch / period,
+            "step_ms_median": period * 1e3}
+
+
+def worst_over_bar(a, b, atol, rtol):
+    """max |a - b| / (atol + rtol |b|) over the elements."""
+    return float(((a.double() - b.double()).abs()
+                  / (atol + rtol * b.double().abs())).max())
+
+
+def compare_states(one, two):
+    """Parameters and EMA of two trainer checkpoints at the training bars:
+    {part: [worst ratio to the bar, tensor, elements over it]}; the
+    largest parameter distance over the learning rate; the Adam moments
+    of the two runs against each other at the gradient bar."""
+    out, lr_dist = {}, 0.0
+    lr = float(one["opt_state"]["optimizer"]["param_groups"][0]["lr"])
+    for part in ("gen", "prj", "gen_ema"):
+        worst = [0.0, None, 0]
+        for k, b in one[part].items():
+            a = two[part][k]
+            scale = max(float(b.abs().max()), 1e-3)
+            bar = DP_PARAM_ATOL * scale + DP_PARAM_RTOL * b.abs()
+            r = float(((a - b).abs() / bar).max())
+            worst[2] += int(((a - b).abs() > bar).sum())
+            if part != "gen_ema":
+                lr_dist = max(lr_dist, float((a - b).abs().max()) / lr)
+            if r > worst[0]:
+                worst[:2] = [r, k]
+        out[part] = worst
+    moments = {}
+    for key in ("exp_avg", "exp_avg_sq"):
+        pairs = [(s1[key], s2[key]) for s1, s2 in zip(
+            one["opt_state"]["optimizer"]["state"].values(),
+            two["opt_state"]["optimizer"]["state"].values())]
+        top = max(float(b.abs().max()) for b, _ in pairs)
+        moments[key] = max(worst_over_bar(a, b, DP_GRAD_ATOL * top,
+                                          DP_GRAD_RTOL) for b, a in pairs)
+    out["largest_distance_over_lr"] = lr_dist
+    out["adam_moments_worst_over_gradient_bar"] = moments
+    return out
+
+
+def judge_reach(dp, reach, failures):
+    """The 2-rank run's parting from the 1-process run after the steps,
+    against float32's reach (the 1-process run's parting from its own
+    repeat and from runs whose weights start one float spacing away):
+    the EMA within the bar everywhere; per parameter part, the elements
+    over the bar and the worst ratio to it, and the Adam moments' worst
+    ratio to the gradient bar, each within DP_REACH_FACTOR x the farthest
+    reach sample's (or within the bar)."""
+    if dp["gen_ema"][2]:
+        failures.append(f"gen_ema: {dp['gen_ema'][2]} elements over the "
+                        f"bar, worst {dp['gen_ema'][0]:.3g} x")
+    for part in ("gen", "prj"):
+        count = max(r[part][2] for r in reach)
+        worst = max(r[part][0] for r in reach)
+        if dp[part][2] > DP_REACH_FACTOR * count or \
+                dp[part][0] > max(1.0, DP_REACH_FACTOR * worst):
+            failures.append(
+                f"{part}: {dp[part][2]} elements over the bar, worst "
+                f"{dp[part][0]:.3g} x at {dp[part][1]}; float32's reach "
+                f"{count} elements, worst {worst:.3g} x")
+    for key, got in dp["adam_moments_worst_over_gradient_bar"].items():
+        worst = max(r["adam_moments_worst_over_gradient_bar"][key]
+                    for r in reach)
+        if got > max(1.0, DP_REACH_FACTOR * worst):
+            failures.append(f"{key}: {got:.3g} x the gradient bar, "
+                            f"float32's reach {worst:.3g} x")
+
+
+def parallel_phase(cfg, cvae_cfg, dev, root, *, streams=STREAMS,
+                   frames=FRAMES, db_windows=DB_WINDOWS, config=None,
+                   dp_clips=DP_CLIPS, nccl_clips=NCCL_CLIPS,
+                   characterize_clips=PARALLEL_CHARACTERIZE_CLIPS,
+                   characterize_frames=TRAIN_CHARACTERIZE_FRAMES):
+    """Phase 13, on the dataset phase's files in ``root``.  (a) Sharded
+    serving: the slice (``streams`` x ``frames``, a ``db_windows``
+    character, CVAE on, not deterministic) on PARALLEL_RANKS gloo ranks of
+    one device, gathered, against the single-process runner with the same
+    weights, inputs and generator seed (every output within
+    PARALLEL_TOL, identical picks), each rank's launches exact for its
+    shard.  (b) Data-parallel training: the first step's gradients on 2
+    ranks against one process; cli/train --data-parallel 2 against
+    --data-parallel 1 on ``dp_clips`` clips (losses each step, the EMA,
+    and the parameters and Adam moments against float32's reach,
+    judge_reach); on the card, one nccl rank for a few steps.
+    (c) characterize --gen-ckpt on the 2-rank checkpoint, launches exact.
+    Returns (result, (summed serving launches, characterize launches))."""
+    t_phase = time.perf_counter()
+    config = config or characterize.DEFAULT_CONFIG
+    work = os.path.join(root, "parallel")
+    os.makedirs(work)
+    names = dataset_names(max(dp_clips, nccl_clips))
+    data_dp = subset_database(root, names[:dp_clips],
+                              os.path.join(work, "data_dp"), dev)
+    data_nccl = subset_database(root, names[:nccl_clips],
+                                os.path.join(work, "data_nccl"), dev)
+    step_config = every_step_config(config, os.path.join(work, "cfg.yaml"))
+    rank_dev = str(dev) if dev.type == "cpu" else f"cuda:{dev.index or 0}"
+    failures = []
+
+    # the ranks' cuDNN as this process's: no TF32 (cli/train sets no flag)
+    tf32_env = os.environ.get("NVIDIA_TF32_OVERRIDE")
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    spec = {"out": os.path.join(work, "rank_{rank}.pt"),
+            "serving": {"cfg": cfg, "cvae_cfg": cvae_cfg,
+                        "streams": streams, "frames": frames,
+                        "db_windows": db_windows, "seed": PARALLEL_SEED},
+            "train": {"config": step_config, "data": data_dp}}
+    t0 = time.perf_counter()
+    distributed.spawn(parallel_rank, PARALLEL_RANKS, args=(spec,),
+                      backend="gloo", device=rank_dev)
+    launch_s = time.perf_counter() - t0
+    ranks_out = [torch.load(spec["out"].format(rank=r), weights_only=False)
+                 for r in range(PARALLEL_RANKS)]
+    log(f"[parallel] {PARALLEL_RANKS} ranks on {rank_dev}, backends "
+        f"{[r['backend'] for r in ranks_out]} (gloo takes the {dev.type} "
+        f"tensors as they are; the port makes no host copies): "
+        f"{launch_s:.1f} s for the launch")
+
+    # (a) sharded serving against one process
+    gen, cvae, norm, consts, parents, clips = serving_setup(
+        cfg, cvae_cfg, dev, streams, frames, db_windows)
+    ref, _, _ = run_slice(gen, cvae, norm, consts, parents, clips, dev,
+                          deterministic=False, root_dtype=torch.float32,
+                          seed=PARALLEL_SEED, keep_encoded=True)
+    ref = {k: v.cpu() for k, v in ref.items()}
+    got = ranks_out[0]["serving"]["outputs"]
+    check_outputs(got, frames, streams)
+    check_picks("parallel serving", consts,
+                ref["encoded"].to(consts.cnt_mean.device),
+                got["nn_index"].to(consts.cnt_mean.device),
+                ref["nn_index"].to(consts.cnt_mean.device))
+    keys = [k for k, v in got.items() if v.is_floating_point()]
+    serve_errs = check_close("parallel serving", got, ref, keys,
+                             atol=PARALLEL_TOL)
+    check(torch.equal(got["contact"], ref["contact"]),
+          "parallel serving: contacts differ")
+    del gen, cvae, consts, ref
+    serving = []
+    for r in ranks_out:
+        s = r["serving"]
+        want = expected_launches(cfg, [s["streams"] * frames], frames)
+        check_launches(dev, s["launches"] == {
+            "launches": want, "launches_bf16": 0, "launches_general": 0},
+            f"parallel serving rank {r['rank']}: launches {s['launches']},"
+            f" want exactly {want} float32 launches")
+        serving.append({k: s[k] for k in (
+            "streams", "launches", "featurize_s", "runner_s", "e2e_s",
+            "step_loop_frames_per_s")})
+    e2e = streams * frames / max(s["e2e_s"] for s in serving)
+    log(f"[parallel] sharded serving, {streams} streams x {frames} frames "
+        f"on {PARALLEL_RANKS} ranks: picks identical, max abs error per "
+        f"output with its (frame, stream) against one process: "
+        f"{json.dumps(serve_errs)}")
+
+    # (b) the first step's gradients: 2 ranks against one process
+    one = dp_backward(spec["train"], dev, None)
+    two = ranks_out[0]["train"]
+    gscale = max(float(g.abs().max()) for g in one["grads"].values())
+    grad_worst = max(
+        (worst_over_bar(two["grads"][k], g, DP_GRAD_ATOL * gscale,
+                        DP_GRAD_RTOL), k) for k, g in one["grads"].items())
+    if grad_worst[0] > 1.0:
+        failures.append(f"first-step gradients: {grad_worst[1]} at "
+                        f"{grad_worst[0]:.3g} x the bar")
+    for k in ranks_out[1]["train"]["grads"]:
+        check(torch.equal(ranks_out[1]["train"]["grads"][k],
+                          two["grads"][k]),
+              f"parallel: the ranks' reduced gradients differ at {k}")
+    loss_gaps = {k: abs(two["metrics"][k] - one["metrics"][k])
+                 / abs(one["metrics"][k]) for k in DP_LOSS_RTOL}
+    training_launches = [r["train"]["launches"] for r in ranks_out]
+    check(not any(any(t.values()) for t in training_launches),
+          f"parallel: attention kernels launched while training: "
+          f"{training_launches}")
+    log(f"[parallel] first step, 2 ranks vs 1: gradients worst "
+        f"{grad_worst[0]:.3g} of the bar (rtol {DP_GRAD_RTOL} / atol "
+        f"{DP_GRAD_ATOL} x {gscale:.3g}) at {grad_worst[1]}; loss relative "
+        f"gaps {json.dumps(loss_gaps)}")
+
+    # cli/train: --data-parallel 2 against --data-parallel 1
+    args = ["--config", step_config, "--data-dir", data_dp, "--max-epochs",
+            "1", "--device", dev.type]
+    one_s, one_path, one_recs = train_run(os.path.join(work, "one"), args)
+    two_s, two_path, two_recs = train_run(
+        os.path.join(work, "two"), args + ["--data-parallel", "2"])
+    batch = int(get_config(step_config)["batch_size"])
+    steps = len(two_recs["gen/loss_total"])
+    check(steps == len(one_recs["gen/loss_total"]) and steps > DP_WARMUP + 1,
+          f"parallel train: {steps} logged steps")
+    loss_worst = {}
+    for tag, rtol in DP_LOSS_RTOL.items():
+        gaps = [abs(b[1] - a[1]) / abs(a[1])
+                for a, b in zip(one_recs[tag], two_recs[tag])]
+        loss_worst[tag] = max(gaps)
+        if max(gaps) > rtol:
+            failures.append(f"{tag}: relative gap {max(gaps):.3g} over "
+                            f"{rtol}")
+    check(all(np.isfinite(v) for recs in two_recs.values()
+              for _, v, _ in recs), "parallel train: a metric is not finite")
+    ref_state = train_ckpt.load_checkpoint(one_path)
+    state_worst = compare_states(ref_state,
+                                 train_ckpt.load_checkpoint(two_path))
+    reach = {}
+    for name, jitter in (("repeat", None),) + tuple(
+            (f"jitter_{j}", TRAIN_JITTER_SEED + j)
+            for j in range(DP_REACH_JITTERS)):
+        _, path, _ = train_run(os.path.join(work, name), args,
+                               jitter_seed=jitter)
+        reach[name] = compare_states(ref_state,
+                                     train_ckpt.load_checkpoint(path))
+    log(f"[parallel] float32's reach, the 1-process run against its repeat"
+        f" and against runs from weights moved one float spacing: "
+        f"{json.dumps(reach)}")
+    judge_reach(state_worst, list(reach.values()), failures)
+    rates = {"one": step_rate(one_recs, batch),
+             "two": step_rate(two_recs, batch)}
+    log(f"[parallel] cli/train {steps} steps at batch {batch}, 2 ranks vs "
+        f"1: losses worst relative gap {json.dumps(loss_worst)}; parameters"
+        f" worst [ratio to the bar, tensor, elements over it] "
+        f"{json.dumps(state_worst)}; main() {two_s:.1f} s (2 ranks) and "
+        f"{one_s:.1f} s (1)")
+
+    nccl = "not run on the CPU"
+    if dev.type == "cuda":
+        nccl_s, nccl_path, nccl_recs = train_run(
+            os.path.join(work, "nccl"),
+            ["--config", step_config, "--data-dir", data_nccl,
+             "--max-epochs", "1", "--device", "cuda", "--data-parallel",
+             "1", "--backend", "nccl"])
+        n = len(nccl_recs["gen/loss_total"])
+        check(n >= 1 and all(np.isfinite(v) for recs in nccl_recs.values()
+                             for _, v, _ in recs),
+              f"parallel nccl: {n} steps, or a metric is not finite")
+        nccl = {"steps": n, "main_s": nccl_s,
+                "checkpoint": os.path.basename(nccl_path)}
+    log(f"[parallel] one nccl rank through cli/train: {json.dumps(nccl)}")
+    if tf32_env is None:
+        os.environ.pop("NVIDIA_TF32_OVERRIDE")
+    else:
+        os.environ["NVIDIA_TF32_OVERRIDE"] = tf32_env
+
+    # (c) serving the 2-rank checkpoint
+    src = os.path.join(work, "src")
+    os.makedirs(src)
+    for i in range(characterize_clips):
+        bvh.save(os.path.join(src, f"clip_{i:02d}.bvh"),
+                 make_mocha_bvh_data(T=characterize_frames, seed=5000 + i))
+    cha = os.path.join(root, "bvh", names[0] + ".bvh")
+    out_dir = os.path.join(work, "characterized")
+    _, char_s, _, char_launches = run_cli(
+        ["--src-dir", src, "--cha", cha, "--gen-ckpt", two_path,
+         "--random-init", "--norm", os.path.join(data_dp, "norm.npz"),
+         "--device", dev.type, "--out", out_dir, "--config", config])
+    cha_windows = len(padded_window_indices(bvh.load(cha)["positions"]
+                                            .shape[0], 60, 1)[0])
+    want = (cli_expected_launches(cfg, [characterize_frames]
+                                  * characterize_clips)
+            + -(-cha_windows // 128) * cfg.encoder_depth)
+    check_launches(dev, char_launches == want,
+                   f"parallel characterize: {char_launches} float32 "
+                   f"launches, want {want}")
+    outs = read_outputs(out_dir)
+    check(len(outs) == 3 * characterize_clips and all(
+        np.isfinite(d["positions"]).all() and np.isfinite(d["rotations"]).all()
+        for d in outs.values()),
+        f"parallel characterize: {len(outs)} outputs, or one not finite")
+
+    result = {
+        "ranks": PARALLEL_RANKS, "device": rank_dev, "launch_s": launch_s,
+        "serving": serving,
+        "serving_step_loop_frames_per_s": [
+            s["step_loop_frames_per_s"] for s in serving],
+        "serving_e2e_frames_per_s": e2e, "serving_errors": serve_errs,
+        "first_step_gradient_worst": list(grad_worst),
+        "first_step_loss_gaps": loss_gaps,
+        "train_steps": steps, "train_batch": batch,
+        "train_loss_worst": loss_worst, "train_state_worst": state_worst,
+        "train_reach": {name: {part: r[part] for part in ("gen", "prj")}
+                        for name, r in reach.items()},
+        "train_rates": rates, "nccl": nccl,
+        "characterize_s": char_s,
+        "characterize_float32_launches": char_launches,
+        "phase_s": time.perf_counter() - t_phase}
+    log(f"[parallel] {json.dumps(result)}")
+    check(not failures, "parallel: " + "; ".join(failures))
+    serving_launches = sum(s["launches"]["launches"] for s in serving)
+    return result, (serving_launches, char_launches)
+
+
 def build_sources():
     """Every CUDA source of the port: one per tuned dtype, and the
     general kernel's."""
@@ -3014,7 +3531,10 @@ def main():
         no_general("train")
         cvae_result, cvae_launches = phase("cvae", cvae_phase, cfg, dev,
                                            root)
-    no_general("cvae")
+        no_general("cvae")
+        parallel_result, (parallel_launches, parallel_char_launches) = \
+            phase("parallel", parallel_phase, cfg, cvae_cfg, dev, root)
+    no_general("parallel")
     log(f"[dataset] build {dataset_result['build_frames_per_s']:.1f} "
         f"frames/s ({dataset_result['frames']} frames, "
         f"{dataset_result['database_mb']:.1f} MB); encode "
@@ -3039,6 +3559,17 @@ def main():
     log(f"[train] loss_total mean of the first {LOSS_WINDOW} logged values "
         f"{train_result['loss_total_first']:.4f}, of the last {LOSS_WINDOW} "
         f"{train_result['loss_total_last']:.4f}; on {card}")
+    lo = parallel_result["serving_step_loop_frames_per_s"]
+    log(f"[parallel] two processes sharing one card (a check of the path, "
+        f"not a scaling number): sharded serving step loop "
+        f"{lo[0]:.1f} / {lo[1]:.1f} frames/s (rank 0 / 1), gathered e2e "
+        f"{parallel_result['serving_e2e_frames_per_s']:.1f} frames/s; "
+        f"data-parallel training "
+        f"{parallel_result['train_rates']['two']['steps_per_s']:.3f} "
+        f"steps/s, {parallel_result['train_rates']['two']['samples_per_s']:.1f}"
+        f" samples/s (one process, every step logged: "
+        f"{parallel_result['train_rates']['one']['samples_per_s']:.1f}); "
+        f"phase {parallel_result['phase_s']:.1f} s; on {card}")
     log(f"[cvae] iterations/s {cvae_result['iterations_per_s']:.3f}, "
         f"updates/s {cvae_result['updates_per_s']:.2f}, rollout windows/s "
         f"{cvae_result['rollout_windows_per_s']:.1f} (median period "
@@ -3080,7 +3611,9 @@ def main():
                       "train_characterize": train_launches,
                       "cvae_iterations": cvae_result["training_launches"][
                           "launches"],
-                      "cvae_characterize": cvae_launches},
+                      "cvae_characterize": cvae_launches,
+                      "parallel_serving": parallel_launches,
+                      "parallel_characterize": parallel_char_launches},
                      launches, DESIGN),
         kernel_entry("attention_bf16", bf16_rows, bf16_edge_max_abs,
                      attention.SOURCE_BF16,

@@ -7,7 +7,8 @@ JAX package so each module's counterpart is easy to find:
 
 cli         ``python -m mocha_sigasia2023_torch.cli.characterize``.
 io          BVH read/write.
-utils       the config reader (a YAML subset, no PyYAML) and directories.
+utils       the config reader (a YAML subset, no PyYAML), directories,
+            metrics logging, tracing and stage timing.
 kinematics  quaternion algebra, FK/IK, the foot-contact springs.
 data        synthetic clips, windowing, clip featurization, window features.
 models      skeleton graph tables, layers, generator, CVAE, weight import
@@ -18,6 +19,10 @@ runtime     context matching (one character or a stack), stream
             frame-at-a-time session, BVH export.
 ops         numerics guards and the hand-written CUDA attention kernels
             (float32 and bfloat16).
+train       losses, the generator's and the CVAE's trainers, checkpoints.
+parallel    data parallelism over ranks on torch.distributed: the mesh,
+            placement by rank, the gradient reduction, process set-up.
+viz         the matplotlib stick-figure animation (host only).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit CPU request they raise.  This package

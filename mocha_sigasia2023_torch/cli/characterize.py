@@ -166,6 +166,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "host and upload them in time chunks of this many "
                          "frames (runner.chunked); 0 = the whole batch on "
                          "the device")
+    ap.add_argument("--viz", default=None, metavar="FILE.{mp4,gif}",
+                    help="--src only: render src/cm/trans/ik side by side "
+                         "to a video on the host (matplotlib; .mp4 needs "
+                         "ffmpeg, .gif pillow)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; raises "
                          "without a GPU unless 'cpu' is given)")
@@ -181,6 +185,15 @@ def main(argv=None):
         ap.error("provide exactly one of --src or --src-dir")
     if args.tchunk < 0:
         ap.error("--tchunk must be >= 0")
+    if args.src_dir and args.viz:
+        ap.error("--viz is a single-clip option; use it with --src")
+    if args.viz:
+        try:
+            import matplotlib
+        except ImportError:
+            raise SystemExit("--viz needs the matplotlib package, which is "
+                             "not installed here") from None
+        matplotlib.use("Agg")
     dev = resolve_device(args.device)
 
     cfg_dict = get_config(args.config)
@@ -299,6 +312,15 @@ def main(argv=None):
     out = rts.characterize_clip(gen, cvae, consts, parents, src_feats,
                                 generator=generator, device=dev, **run_kw)
     write_outputs(args.src, out)
+    if args.viz:
+        from ..viz import animation_plot
+
+        bones = np.asarray(contact_bones)
+        animation_plot([[out[f"{s}_pos"], out[f"{s}_rot"], out["contact"],
+                         bones, parents]
+                        for s in ("src", "cm", "trans", "ik")],
+                       save_path=args.viz, show=False)
+        print(f"wrote {args.viz}")
     return out
 
 

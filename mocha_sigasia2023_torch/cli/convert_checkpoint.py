@@ -6,11 +6,15 @@ the reference trainer's ``gen_*.pt`` (``{'gen', 'gen_ema', 'gen_opt'}``),
 the CVAE's ``cvae_*.pt`` (a bare state dict), a projector state dict, and
 the JAX package's msgpack checkpoints (``gen_*.msgpack`` with ``gen``,
 ``gen_ema`` and ``prj``; ``cvae_*.msgpack`` with ``cvae``; a converted
-``{"prj": ...}``).  The JAX ``opt_state`` is read and left unused.  Writes:
+``{"prj": ...}``).  Writes:
 
 - ``--kind gen``: ``{"gen", "gen_ema"}`` state dicts (and ``prj`` when the
   source holds one), which ``train/trainer.load_generator`` and
-  ``characterize --gen-ckpt`` read;
+  ``characterize --gen-ckpt`` read; from a JAX trainer checkpoint also its
+  optax AdamW state (``opt_state: {"adamw": ...}``, the moments under the
+  port's parameter names, the update and schedule counts; see
+  ``models/convert.adamw_from_optax``) and ``step``, so that
+  ``cli/train --resume`` continues the JAX run's optimizer;
 - ``--kind cvae``: ``{"cvae", "iteration"}``, as ``cli/train_cvae`` writes
   it (the iteration from the source's file name);
 - ``--kind projector``: ``{"prj"}``.
@@ -60,6 +64,10 @@ def convert_file(src: str, kind: str, gen_cfg: GeneratorConfig,
         if jax_file and "prj" in obj:
             out["prj"] = _state(convert.projector_from_jax(
                 obj["prj"], prj_cfg, device=dev))
+        if jax_file and "opt_state" in obj:
+            adamw = convert.adamw_from_optax(obj["opt_state"])
+            out["opt_state"] = {"adamw": adamw}
+            out["step"] = adamw["count"]
         return out
     if kind == "cvae":
         cvae = convert.cvae_from_jax(obj["cvae"], cvae_cfg, device=dev) \

@@ -145,7 +145,11 @@ class MotionDataset:
             db["bone_velocities"][idx_all],
             db["bone_angular_velocities"][idx_all], parents, device=device)
         if not os.path.exists(norm_path):
-            np.savez_compressed(norm_path, **compute_norm_stats(X, Y, root))
+            # renamed into place: the ranks of a data-parallel run each
+            # build the dataset, and none may read half a file
+            tmp = f"{norm_path}.tmp.{os.getpid()}.npz"
+            np.savez_compressed(tmp, **compute_norm_stats(X, Y, root))
+            os.replace(tmp, norm_path)
 
         self.X = X.astype(np.float32)
         self.Y = Y.astype(np.float32)

@@ -55,9 +55,13 @@ def _float32(v) -> torch.Tensor:
     return torch.as_tensor(np.array(v, np.float32))
 
 
+def state_dict_from_jax(params_np) -> Dict[str, torch.Tensor]:
+    """A JAX pytree's leaves as float32 tensors under the port's names."""
+    return {k: _float32(v) for k, v in flatten_pytree(params_np).items()}
+
+
 def _load(module: torch.nn.Module, params_np, device):
-    state = {k: _float32(v) for k, v in flatten_pytree(params_np).items()}
-    module.load_state_dict(state, strict=True)
+    module.load_state_dict(state_dict_from_jax(params_np), strict=True)
     return module.requires_grad_(False).to(resolve_device(device)).eval()
 
 
@@ -77,6 +81,43 @@ def projector_from_jax(params_np, cfg: ProjectorConfig = ProjectorConfig(),
                        device=None) -> Projector:
     """The port's Projector holding the JAX projector's weights."""
     return _load(Projector(cfg), params_np, device)
+
+
+def _maps_with_keys(tree, keys, found):
+    """Every dict of ``tree`` (nested dicts and lists) whose keys are
+    ``keys``, depth first."""
+    if isinstance(tree, dict):
+        if set(tree) == keys:
+            found.append(tree)
+            return found
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            _maps_with_keys(v, keys, found)
+    return found
+
+
+def adamw_from_optax(opt_state) -> Dict:
+    """The AdamW state of the JAX generator trainer's optax state, as its
+    msgpack checkpoint holds it: ``chain(masked(safe_clip), adamw(lr
+    schedule))`` is ``[{"inner_state": {}}, [ScaleByAdamState {count, mu,
+    nu}, {}, ScaleByScheduleState {count}]]``.  Returns ``{"count",
+    "schedule_count", "exp_avg", "exp_avg_sq"}``: the update count, the
+    schedule's, and ``mu`` / ``nu`` as ``{"gen": ..., "prj": ...}`` state
+    dicts under the port's parameter names (the pytrees use torch layouts,
+    so this is the weights' own flatten), float32."""
+    adam = _maps_with_keys(opt_state, {"count", "mu", "nu"}, [])
+    sched = _maps_with_keys(opt_state, {"count"}, [])
+    if len(adam) != 1 or len(sched) != 1:
+        raise ValueError(f"optax state: {len(adam)} ScaleByAdamState and "
+                         f"{len(sched)} ScaleByScheduleState found, want "
+                         "one of each (chain(masked(clip), adamw(schedule)))")
+    return {"count": int(np.asarray(adam[0]["count"])),
+            "schedule_count": int(np.asarray(sched[0]["count"])),
+            "exp_avg": {part: state_dict_from_jax(tree)
+                        for part, tree in adam[0]["mu"].items()},
+            "exp_avg_sq": {part: state_dict_from_jax(tree)
+                           for part, tree in adam[0]["nu"].items()}}
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .layers import dropout, layer_norm, linear, numpy_init_, split
+from .layers import draw, dropout, layer_norm, linear, numpy_init_, split
 
 
 class CVAEConfig(NamedTuple):
@@ -234,8 +234,7 @@ def reparameterize(generator: torch.Generator, mu, logvar):
         raise ValueError("reparameterize: pass a torch.Generator for the "
                          "noise")
     std = torch.exp(0.5 * logvar)
-    noise = torch.randn(std.shape, generator=generator, device=std.device,
-                        dtype=std.dtype)
+    noise = draw(torch.randn, std.shape, generator, std.device, std.dtype)
     return mu + noise * std
 
 
@@ -268,7 +267,8 @@ def forward(cvae: CVAE, x, c, *, generator: torch.Generator, train=False):
 def sample(cvae: CVAE, c, *, deterministic: bool = False,
            generator: Optional[torch.Generator] = None):
     """Prior -> decode.  ``deterministic`` takes z = mu; otherwise the
-    noise is drawn from ``generator`` (required)."""
+    noise is drawn from ``generator`` (required), for every stream of the
+    batch under ``layers.batch_shard``."""
     mu, logvar = prior(cvae, c)
     if deterministic:
         z = mu
@@ -276,7 +276,6 @@ def sample(cvae: CVAE, c, *, deterministic: bool = False,
         if generator is None:
             raise ValueError("sample: pass a torch.Generator for the noise "
                              "or deterministic=True")
-        noise = torch.randn(mu.shape, generator=generator, device=mu.device,
-                            dtype=mu.dtype)
+        noise = draw(torch.randn, mu.shape, generator, mu.device, mu.dtype)
         z = mu + noise * torch.exp(0.5 * logvar)
     return decode(cvae, z, c)

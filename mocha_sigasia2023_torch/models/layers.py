@@ -13,11 +13,15 @@ Training forwards (``train=True``) take the JAX package's training path:
 attention by the plain formula (the kernels have no backward; JAX trains
 through its einsum path too), and dropout where a ``torch.Generator`` is
 given, in place of the JAX ``key``.  :func:`split` derives independent
-generators from one, as ``jax.random.split`` derives keys.
+generators from one, as ``jax.random.split`` derives keys.  Under
+:func:`batch_shard` (a rank of a data-parallel step or of sharded serving)
+the draws that follow the batch are taken at the global batch's shape and
+cut to this rank's rows, so that they equal the single-process draws.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -133,15 +137,54 @@ def split(generator: torch.Generator, n: int):
         _splitmix64((base + i + 1) & _MASK64)) for i in range(n)]
 
 
+# (this process's block, the number of blocks) of the leading axis
+_BATCH_SHARD = (0, 1)
+
+
+@contextlib.contextmanager
+def batch_shard(index: int, count: int):
+    """Within the block, :func:`draw` takes every draw at ``count`` times
+    the leading axis it is asked for and keeps block ``index``: a process
+    holding rows ``[index b, (index + 1) b)`` of a batch split into
+    ``count`` blocks then draws what one process holding the whole batch
+    draws for those rows (JAX's sharded jit draws a global-shape mask).
+    Every draw that follows the batch has the batch on its leading axis:
+    dropout on the attention weights (b, heads, n, m), on the attention
+    and feed-forward outputs (b, tokens, dim), and the CVAE's noise
+    (b, latent)."""
+    global _BATCH_SHARD
+    if not 0 <= index < count:
+        raise ValueError(f"batch_shard: block {index} of {count}")
+    saved, _BATCH_SHARD = _BATCH_SHARD, (int(index), int(count))
+    try:
+        yield
+    finally:
+        _BATCH_SHARD = saved
+
+
+def draw(fn, shape, generator, device, dtype=None) -> torch.Tensor:
+    """``fn(shape, generator=, device=, dtype=)`` (``torch.rand`` or
+    ``torch.randn``), under :func:`batch_shard` drawn for the whole batch
+    and cut to this process's block of the leading axis."""
+    index, count = _BATCH_SHARD
+    shape = tuple(shape)
+    if count == 1:
+        return fn(shape, generator=generator, device=device, dtype=dtype)
+    b = shape[0]
+    full = fn((b * count,) + shape[1:], generator=generator, device=device,
+              dtype=dtype)
+    return full[index * b:(index + 1) * b]
+
+
 def dropout(x, rate: float, generator, train: bool):
     """Inverted dropout: keep each element with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate), the mask drawn from
-    ``generator`` (on ``x``'s device); the identity unless training with a
-    generator and a positive rate."""
+    ``generator`` (on ``x``'s device; see :func:`batch_shard`); the
+    identity unless training with a generator and a positive rate."""
     if not train or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = (torch.rand(x.shape, generator=generator, device=x.device)
+    mask = (draw(torch.rand, x.shape, generator, x.device)
             < keep).to(x.dtype)
     return x * mask * (1.0 / keep)
 

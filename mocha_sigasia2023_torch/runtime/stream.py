@@ -5,7 +5,8 @@ Counterpart of mocha_sigasia2023_tpu/runtime/stream.py (the step with its
 ``lean_decode`` options, ``init_stream``, the batch runner for one
 character or a stack of characters with ``runner.chunked``,
 ``characterize_clip``, ``pad_character_database``, ``cast_database``,
-``stack_consts``) and of ``build_consts`` in
+``stack_consts``), of sharded serving (``run_sharded``, JAX's runner on
+inputs that ``parallel.shard_streams`` placed) and of ``build_consts`` in
 mocha_sigasia2023_tpu/cli/characterize.py:81-112.  Per frame and stream:
 nearest-neighbour context match (hoisted out of the frame loop), CVAE prior
 sample, two generator decodes, root integration under the velocity-ratio
@@ -34,6 +35,8 @@ from ..kinematics import quat
 from ..kinematics.inertial import ContactState, contact_update
 from ..models import cvae as cvae_mod
 from ..models import generator as gen_mod
+from ..models.layers import batch_shard
+from ..parallel.mesh import all_gather_rows, data_coordinate
 from .matching import nn_index, nn_index_grouped
 
 
@@ -680,6 +683,24 @@ def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
 
     runner.chunked = chunked
     return runner
+
+
+def run_sharded(runner, mesh, frame0: Dict, xs: Dict,
+                generator: Optional[torch.Generator] = None,
+                char_ids=None) -> Dict[str, torch.Tensor]:
+    """Sharded serving: ``runner`` (:func:`make_batch_runner`) over this
+    rank's block of the S streams, the outputs gathered in stream order on
+    every rank, (T, S, ...).  ``frame0`` / ``xs`` (and ``char_ids``) hold
+    the rank's block: ``parallel.shard_streams`` of the global inputs, or
+    the features of ``parallel.shard_batch``'s block of the clips.  The
+    streams are independent, so no rank waits on another until the
+    gather.  The CVAE noise of each frame is drawn for all S streams and
+    cut to the rank's rows (``layers.batch_shard``): every stream gets the
+    noise the unsharded run with the same ``generator`` seed gives it."""
+    index, count = data_coordinate(mesh)
+    with batch_shard(index, count):
+        out = runner(frame0, xs, generator, char_ids=char_ids)
+    return {k: all_gather_rows(v, mesh, dim=1) for k, v in out.items()}
 
 
 def characterize_clip(gen, cvae, consts: RuntimeConsts, parents,

@@ -124,10 +124,19 @@ def convert_YtilToX(Ytil, Ygnd_root, parents, compute_dtype=None):
 
 def patch_nce_loss(feat_q, feat_k, temp: float = 0.07,
                    all_negatives_from_minibatch: bool = True,
-                   batch_size: int = 1, compute_dtype=None):
+                   batch_size: int = 1, compute_dtype=None,
+                   gather_keys=None):
     """PatchNCE InfoNCE: the positive is the matching patch, the negatives
     every other patch of the (mini)batch, the diagonal filled with -10; the
-    keys carry no gradient.  Returns (loss, logits)."""
+    keys carry no gradient.  Returns (loss, logits).
+
+    With negatives from the whole minibatch, a query's negatives are every
+    sample's keys: a rank of a data-parallel step holding a block of the
+    batch passes ``gather_keys(k) -> (every rank's keys, the offset of its
+    own)``, k (1, patches, dim) normalized and detached, so that its rows'
+    logits and loss terms are the single-process step's (the keys carry no
+    gradient, so the mean of the ranks' gradients is then the global
+    one)."""
     n, dim = feat_q.shape
     out_dtype = feat_q.dtype
     if compute_dtype is not None:
@@ -145,11 +154,18 @@ def patch_nce_loss(feat_q, feat_k, temp: float = 0.07,
     bdim = 1 if all_negatives_from_minibatch else batch_size
     q = feat_q.reshape(bdim, -1, dim)
     k = feat_k.reshape(bdim, -1, dim)
-    npatches = q.shape[1]
+    offset = 0
+    if gather_keys is not None:
+        if not all_negatives_from_minibatch:
+            raise ValueError("patch_nce_loss: gather_keys needs negatives "
+                             "from the whole minibatch")
+        k, offset = gather_keys(k)
+    nq, nk = q.shape[1], k.shape[1]
     l_neg = torch.einsum("bnd,bmd->bnm", q, k)
-    eye = torch.eye(npatches, dtype=torch.bool, device=q.device)[None]
-    l_neg = torch.where(eye, torch.full_like(l_neg, -10.0),
-                        l_neg).reshape(-1, npatches)
+    eye = (torch.arange(nk, device=q.device)[None, :]
+           == torch.arange(offset, offset + nq, device=q.device)[:, None])
+    l_neg = torch.where(eye[None], torch.full_like(l_neg, -10.0),
+                        l_neg).reshape(-1, nk)
 
     logits = torch.cat([l_pos, l_neg], dim=1) / temp
     # the positive is column 0

@@ -10,11 +10,23 @@ generator (beta 0.999) applied after the update.
 
 Every forward here is a training forward (``train=True``): attention by
 the plain formula, never the CUDA kernels, which have no backward.  The
-JAX package trains through its einsum path too.  There is no mesh: one
-device.  The JAX trainer's workarounds for one TPU compiler
-(``split_step``'s separately compiled pieces and ``tail_barrier``) are
-gradient-identical to its monolithic step; the config keys are accepted
-and not acted on.
+JAX package trains through its einsum path too.  The JAX trainer's
+workarounds for one TPU compiler (``split_step``'s separately compiled
+pieces and ``tail_barrier``) are gradient-identical to its monolithic
+step; the config keys are accepted and not acted on.
+
+Data parallelism (``mesh``, a ``parallel.make_mesh`` mesh): each rank
+holds the same weights and steps on its block of the global batch, and
+the gradients' mean over ``data`` is taken with one coalesced all-reduce
+between the backward and the update, where XLA inserts its psum in JAX's
+sharded step.  That mean is the global batch's gradient because every
+loss term is a mean of equal-weight per-sample terms (the FK L1s, the
+cycle L1s, PatchNCE's rows) once PatchNCE's negatives, which span the
+whole minibatch, are every rank's keys (gathered; they carry no
+gradient), and dropout masks are drawn at the global batch's shape
+(``layers.batch_shard``).  The modules are not wrapped in
+``DistributedDataParallel``: the loss runs the generator six times before
+one backward.
 """
 
 from __future__ import annotations
@@ -28,10 +40,15 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..io.msgpack import read_msgpack
+from ..models import convert
 from ..models.generator import Generator, GeneratorConfig
-from ..models.layers import numpy_init_, split
+from ..models.layers import batch_shard, numpy_init_, split
 from ..models.projector import ProjectorConfig, apply_projector, init_projector
 from ..ops.numerics import safe_clip_by_global_norm
+from ..parallel.distributed import is_primary_host
+from ..parallel.mesh import (all_gather_rows, all_reduce_mean_,
+                             data_coordinate, replicate)
 from . import checkpoint as ckpt
 from .losses import (contrastive_acc, convert_YtilToX, patch_nce_loss,
                      recon_criterion)
@@ -97,12 +114,13 @@ def _make_fwd(gen: Generator, compute_dtype=None, remat=False):
 def compute_gen_loss(gen: Generator, prj, prj_cfg: ProjectorConfig,
                      batch_src, batch_cha, norm, parents, weights,
                      generator: Optional[torch.Generator] = None,
-                     loss_dtype=None, compute_dtype=None, remat=False):
+                     loss_dtype=None, compute_dtype=None, remat=False,
+                     gather_keys=None):
     """The full generator objective.  Returns (total, metrics, logits): 0-d
     tensors on the device, and the PatchNCE logits that the top-k
     accuracies rank (positive in column 0).  ``generator`` (None: no
     dropout) splits into the forwards' streams as the JAX package splits
-    its key."""
+    its key; ``gather_keys`` goes to :func:`patch_nce_loss`."""
     X_mean, X_std = norm["X_mean"][None, None], norm["X_std"][None, None]
     Y_mean, Y_std = norm["Y_mean"][None, None], norm["Y_std"][None, None]
 
@@ -139,7 +157,8 @@ def compute_gen_loss(gen: Generator, prj, prj_cfg: ProjectorConfig,
     feat_k, patch_id = apply_projector(prj, prj_cfg, trans_cnt)
     feat_q, _ = apply_projector(prj, prj_cfg, src_cnt, patch_id)
     loss_nce, logits = patch_nce_loss(feat_q, feat_k,
-                                      compute_dtype=loss_dtype)
+                                      compute_dtype=loss_dtype,
+                                      gather_keys=gather_keys)
     top1, top5 = contrastive_acc(logits)
 
     cyc_src = fwd(trans_in, src_in, seeds[4])
@@ -165,7 +184,9 @@ def _dtype(name):
 
 class GeneratorTrainer:
     """The generator, projector, EMA, optimizer and schedule on one
-    device, with the training step and checkpoints.
+    device, with the training step and checkpoints; with ``mesh``, one
+    rank of a data-parallel group, whose step methods take this rank's
+    block of each batch (``parallel.shard_batch``).
 
     Config keys beyond the model and loss weights: ``dropout`` (false runs
     every forward without dropout), ``compute_dtype`` (e.g. ``bfloat16``:
@@ -175,9 +196,10 @@ class GeneratorTrainer:
     ``split_step`` and ``tail_barrier`` are accepted and ignored."""
 
     def __init__(self, config: Dict, steps_per_epoch: int, seed: int = 1777,
-                 device=None):
+                 device=None, mesh=None):
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.loss_dtype = _dtype(config.get("loss_dtype"))
         self.train_forwards = bool(config.get("dropout", True))
         self.compute_dtype = _dtype(config.get("compute_dtype"))
@@ -199,6 +221,9 @@ class GeneratorTrainer:
 
         self.gen = numpy_init_(Generator(self.gen_cfg), seed).to(self.device)
         self.prj = init_projector(self.prj_cfg, seed + 1, self.device)
+        if mesh is not None:    # rank 0's weights, as JAX replicates them
+            replicate(mesh, self.gen)
+            replicate(mesh, self.prj)
         self.gen_ema = copy.deepcopy(self.gen).requires_grad_(False).eval()
         self.opt, self.schedule = make_optimizer(
             self.gen, self.prj, lr=float(config["lr_gen"]),
@@ -219,16 +244,36 @@ class GeneratorTrainer:
         (before the clip).  Batches and norm are arrays or tensors (moved
         to the device unless they are there); ``generator`` seeds the
         dropout masks (unused with ``dropout: false``).  Returns the
-        metrics as 0-d device tensors and the PatchNCE logits, detached."""
+        metrics as 0-d device tensors and the PatchNCE logits, detached.
+
+        With a mesh the gradients are the mean over ``data`` (the global
+        batch's), the metrics too; the logits are this rank's rows."""
         self.opt.zero_grad(set_to_none=True)
-        total, metrics, logits = compute_gen_loss(
-            self.gen, self.prj, self.prj_cfg, self.on_device(batch_src),
-            self.on_device(batch_cha), self.on_device(norm), self.parents,
-            self.weights, generator if self.train_forwards else None,
-            loss_dtype=self.loss_dtype, compute_dtype=self.compute_dtype,
-            remat=self.remat)
-        total.backward()
-        return {k: v.detach() for k, v in metrics.items()}, logits.detach()
+        index, count = data_coordinate(self.mesh)
+        gather = None
+        if count > 1:
+            def gather(k):
+                return all_gather_rows(k, self.mesh, dim=1), index * k.shape[1]
+        # remat recomputes the forwards in the backward: the same blocks
+        with batch_shard(index, count):
+            total, metrics, logits = compute_gen_loss(
+                self.gen, self.prj, self.prj_cfg, self.on_device(batch_src),
+                self.on_device(batch_cha), self.on_device(norm),
+                self.parents, self.weights,
+                generator if self.train_forwards else None,
+                loss_dtype=self.loss_dtype, compute_dtype=self.compute_dtype,
+                remat=self.remat, gather_keys=gather)
+            total.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if count > 1:
+            params = [*self.gen.parameters(), *self.prj.parameters()]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            metrics = {k: v.clone() for k, v in metrics.items()}
+            all_reduce_mean_([*(p.grad for p in params), *metrics.values()],
+                             self.mesh)
+        return metrics, logits.detach()
 
     @torch.no_grad()
     def update(self) -> None:
@@ -262,7 +307,11 @@ class GeneratorTrainer:
     # -- checkpoints ------------------------------------------------------
 
     def save(self, model_dir: str, epoch: int) -> str:
+        """Write ``gen_<epoch>.ckpt`` (on rank 0 only: the ranks hold the
+        same state); returns its path."""
         path = ckpt.checkpoint_path(model_dir, epoch)
+        if not is_primary_host():
+            return path
 
         def cpu(module):
             return {k: v.detach().cpu() for k, v in
@@ -280,17 +329,66 @@ class GeneratorTrainer:
 
     def load(self, path: str, resume: bool = False) -> int:
         """Read a checkpoint's weights (and with ``resume`` its optimizer
-        state, schedule and step); returns the epoch in its file name."""
-        saved = ckpt.load_checkpoint(path)
+        state, schedule and step); returns the epoch in its file name.
+        ``path`` is the port's ``.ckpt`` or the JAX trainer's ``.msgpack``,
+        whose optax AdamW state resumes through :meth:`load_adamw`, as
+        does a ``.ckpt`` that ``cli/convert_checkpoint`` wrote from one.
+        Every rank of a mesh loads the file."""
+        if path.endswith(".msgpack"):
+            saved = read_msgpack(path)
+            saved = {**{k: convert.state_dict_from_jax(saved[k])
+                        for k in ("gen", "prj", "gen_ema")},
+                     "opt_state": {"adamw": convert.adamw_from_optax(
+                         saved["opt_state"])}}
+        else:
+            saved = ckpt.load_checkpoint(path)
         with torch.no_grad():
             self.gen.load_state_dict(saved["gen"])
             self.prj.load_state_dict(saved["prj"])
             self.gen_ema.load_state_dict(saved["gen_ema"])
         if resume:
-            self.opt.load_state_dict(saved["opt_state"]["optimizer"])
-            self.schedule.load_state_dict(saved["opt_state"]["schedule"])
-            self.step = int(saved["step"])
+            opt_state = saved["opt_state"]
+            if "adamw" in opt_state:
+                self.load_adamw(opt_state["adamw"])
+            else:
+                self.opt.load_state_dict(opt_state["optimizer"])
+                self.schedule.load_state_dict(opt_state["schedule"])
+                self.step = int(saved["step"])
         return ckpt.epoch_from_path(path)
+
+    def load_adamw(self, adamw: Dict) -> None:
+        """Resume from the JAX trainer's AdamW state
+        (``convert.adamw_from_optax``): ``mu`` -> ``exp_avg``, ``nu`` ->
+        ``exp_avg_sq``, the update count -> each parameter's ``step`` and
+        the trainer's, the schedule's count -> the StepLR's
+        ``last_epoch``, with the learning rate optax's staircase gives it
+        there."""
+        named = [("gen", n, p) for n, p in self.gen.named_parameters()] + \
+            [("prj", n, p) for n, p in self.prj.named_parameters()]
+        for key in ("exp_avg", "exp_avg_sq"):
+            for part in ("gen", "prj"):
+                want = {n for q, n, _ in named if q == part}
+                got = set(adamw[key][part])
+                if got != want:
+                    raise ValueError(
+                        f"AdamW {key} of {part}: names differ from the "
+                        f"trainer's: {sorted(got ^ want)[:8]}")
+        count = int(adamw["count"])
+        state = self.opt.state_dict()
+        state["state"] = {
+            i: {"step": torch.tensor(float(count)),
+                "exp_avg": adamw["exp_avg"][part][n].to(p.device),
+                "exp_avg_sq": adamw["exp_avg_sq"][part][n].to(p.device)}
+            for i, (part, n, p) in enumerate(named)}
+        sched_count = int(adamw["schedule_count"])
+        lr = float(self.config["lr_gen"]) * LR_GAMMA ** (
+            sched_count // self.schedule.step_size)
+        for group in state["param_groups"]:
+            group["lr"] = lr
+        self.opt.load_state_dict(state)
+        self.schedule.last_epoch = sched_count
+        self.schedule._last_lr = [lr] * len(state["param_groups"])
+        self.step = count
 
     @property
     def gen_ema_params(self) -> Generator:

@@ -348,8 +348,15 @@ def test_convert_checkpoint_serves_the_same_frames(chain, port_msgpack_run,
     convert_checkpoint.main([chain["gen"], str(tmp_path / "prj.ckpt"),
                              "--kind", "projector", *cfg])
     saved = tckpt.load_checkpoint(str(gen_ckpt))
-    assert sorted(saved) == ["gen", "gen_ema", "prj"]
+    # the JAX trainer's AdamW state comes along (trainer.load resumes it)
+    assert sorted(saved) == ["gen", "gen_ema", "opt_state", "prj", "step"]
     tree = tmsgpack.read_msgpack(chain["gen"])
+    adamw = saved["opt_state"]["adamw"]
+    assert saved["step"] == adamw["count"] == int(
+        tree["opt_state"][1][0]["count"])
+    mu = convert.flatten_pytree(tree["opt_state"][1][0]["mu"]["gen"])
+    for k, v in adamw["exp_avg"]["gen"].items():
+        np.testing.assert_array_equal(v.numpy(), mu[k])
     flat = convert.flatten_pytree(tree["prj"])
     for k, v in tckpt.load_checkpoint(str(tmp_path / "prj.ckpt"))[
             "prj"].items():

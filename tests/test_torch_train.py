@@ -396,11 +396,6 @@ def test_characterize_serves_the_checkpoint_ema(cli_run, data, monkeypatch):
         np.testing.assert_array_equal(a["rotations"], b["rotations"])
 
 
-def test_cli_train_refuses_data_parallel():
-    with pytest.raises(SystemExit, match="R9"):
-        tcli.main(["--data-parallel", "2", "--device", "cpu"])
-
-
 def test_prefetch_batches_yields_the_plain_batches(data):
     d, _ = data
     ds = tds.MotionDataset(str(d / "data"), device="cpu")
