@@ -49,7 +49,8 @@ Phases (any failure exits non-zero; each prints its wall time):
      run's, with the range.
   5. parity: the same slice at 2 streams x 120 frames, deterministic,
      through the port on the GPU and on the CPU with the same weights;
-     positions within 1e-3 and identical nearest-neighbour picks.
+     every position and rotation within 1e-3 and identical
+     nearest-neighbour picks.
   6. cli: ``characterize.main`` in-process at full width (--random-init)
      on 64 synthetic BVH clips of 255, 215 and 175 frames (three featurize
      groups) against a 2048-window character: a warm-up, then 3 timed
@@ -59,7 +60,8 @@ Phases (any failure exits non-zero; each prints its wall time):
      its own clip's frame count.  BVH parse and export are timed alone on
      the same files.  --tchunk 60 must match the monolithic run within
      1e-4 (deterministic), and --src on the GPU must match --src on the CPU
-     within 1e-3 (135 frames, 256-window character).  Then one --bf16 run
+     within 1e-3, positions and rotations (135 frames, 256-window
+     character).  Then one --bf16 run
      on the same files: every output finite with its clip's frame count,
      the sources through the bf16 kernel.
   7. multi: the slice's 64 x 240 streams against a stack of 30 synthetic
@@ -151,15 +153,26 @@ Phases (any failure exits non-zero; each prints its wall time):
      process (rtol 1e-4 / atol 1e-5 x the largest, no attention launch);
      cli/train --data-parallel 2 against --data-parallel 1 for one epoch
      (10 steps of 64) on 6 of the dataset's clips, every step logged:
-     losses within rtol 2e-3 (NCE 2e-2), the EMA within atol 5e-5 x
-     scale / rtol 2e-4; the parameters at that bar and the Adam moments
-     at the gradient bar, held to float32's reach on the card (the
-     1-process run against its own repeat and 2 runs from weights moved
-     one float spacing: the repeat alone parts by more than the bar)
-     times 2; steps/s and samples/s; one nccl rank
+     every process under torch.use_deterministic_algorithms: losses
+     within rtol 2e-3 (NCE 2e-2), the EMA within atol 5e-5 x scale / rtol
+     2e-4; the 1-process run's repeat bit-identical; the parameters at
+     that bar and the Adam moments at the gradient bar, held to float32's
+     reach on the card (the 1-process run against 2 runs from weights
+     moved one float spacing: 2 ranks sum the gradients in another order,
+     and part from 1 by more than the bar) times 2; steps/s and
+     samples/s; one nccl rank
      (--data-parallel 1 --backend nccl) for 3 steps.  Then characterize
      --gen-ckpt on the 2-rank checkpoint, launches exact.
-  The general kernel's counter stays at 0 through phases 4-13: the
+  14. orbax: the JAX-written orbax directories committed under
+     tests/data/orbax (a tiny generator with a bf16 leaf, a tiny CVAE)
+     read by the port, every leaf equal to its msgpack twin bit for bit;
+     a full-width gen, gen_ema and prj written by the port's
+     save_checkpoint_orbax and read back bit for bit, both timed; gen_ema
+     served from that directory (4 streams x 60 frames, deterministic)
+     through the tuned fp32 kernel against the same weights from a .ckpt:
+     every output within 1e-6, identical picks, exactly the launches the
+     path implies.
+  The general kernel's counter stays at 0 through phases 4-14: the
   shipped config never leaves the tuned kernels.
 
 The line before the last is a JSON object describing every kernel; the
@@ -205,11 +218,15 @@ from mocha_sigasia2023_torch.data.synthetic import make_mocha_bvh_data  # noqa: 
 from mocha_sigasia2023_torch.data.windows import (  # noqa: E402
     full_window_indices, padded_window_indices, window_features)
 from mocha_sigasia2023_torch.io import bvh  # noqa: E402
+from mocha_sigasia2023_torch.io.msgpack import read_msgpack  # noqa: E402
+from mocha_sigasia2023_torch.models import convert  # noqa: E402
 from mocha_sigasia2023_torch.models import cvae as cvae_mod  # noqa: E402
 from mocha_sigasia2023_torch.models.cvae import CVAEConfig, init_cvae  # noqa: E402
 from mocha_sigasia2023_torch.models import layers  # noqa: E402
 from mocha_sigasia2023_torch.models.generator import (  # noqa: E402
     GeneratorConfig, content_feature, init_generator)
+from mocha_sigasia2023_torch.models.projector import (  # noqa: E402
+    init_projector)
 from mocha_sigasia2023_torch.ops import attention, build  # noqa: E402
 from mocha_sigasia2023_torch.parallel import distributed  # noqa: E402
 from mocha_sigasia2023_torch.parallel.mesh import (  # noqa: E402
@@ -223,10 +240,16 @@ from mocha_sigasia2023_torch.runtime.stream import (  # noqa: E402
     stack_consts, stack_stream_inputs)
 from mocha_sigasia2023_torch.train import checkpoint as train_ckpt  # noqa: E402
 from mocha_sigasia2023_torch.train.trainer import (  # noqa: E402
-    GeneratorTrainer)
+    GeneratorTrainer, load_generator)
 from mocha_sigasia2023_torch.train.trainer_cvae import (  # noqa: E402
     CVAETrainer)
 from mocha_sigasia2023_torch.utils import get_config  # noqa: E402
+
+# cli/train's ranks import this file as their main module: under
+# deterministic_training (the parallel phase) they take that mode too
+DETERMINISTIC_FLAG = "CHIP_SMOKE_DETERMINISTIC"
+if os.environ.get(DETERMINISTIC_FLAG) == "1":
+    torch.use_deterministic_algorithms(True)
 
 # H100 SXM data sheet: HBM bandwidth, dense TF32 and bf16 tensor-core rates,
 # and the fp32 rate outside the tensor cores
@@ -963,6 +986,11 @@ def nn_gaps(consts, encoded, picks_a, picks_b):
 
 POS_KEYS = ("src_pos", "trans_pos", "ik_pos", "cm_pos")
 ROT_KEYS = ("src_rot", "trans_rot", "ik_rot", "cm_rot")
+# GPU against CPU, every output (PARITY.md:87 for positions; rotations at
+# the CPU tests' bar, tests/test_torch_stream.py).  The IK rotations reach
+# ~2e-4 from float32 alone: arccos of a near-unit dot in ik_two_bone, in
+# the JAX package too (tests/test_torch_ik_reach.py).
+PARITY_TOL = 1e-3
 
 
 def max_errors(a, b, keys, where=False):
@@ -1057,11 +1085,12 @@ def parity_phase(cfg, cvae_cfg, dev, *, streams=2, frames=120,
             f"{gaps}")
         raise RuntimeError(f"parity: NN picks differ between GPU and CPU at "
                            f"{len(bad)} (frame, stream)s")
-    errs = max_errors(g, c, POS_KEYS)
+    errs = max_errors(g, c, POS_KEYS + ROT_KEYS)
     log(f"[parity] GPU vs CPU, {streams} streams x {frames} frames, NN picks "
         f"identical; max abs error per output with its (frame, stream): "
         f"{json.dumps(max_errors(g, c, POS_KEYS + ROT_KEYS, where=True))}")
-    check(max(errs.values()) <= 1e-3, f"parity: positions differ {errs}")
+    check(max(errs.values()) <= PARITY_TOL,
+          f"parity: positions or rotations differ {errs}")
     return errs
 
 
@@ -1634,15 +1663,15 @@ def cli_parity(root, dev, extra):
              "--device", name, "--out", os.path.join(d, name), *extra])
         outs.append(out)
     g, c = outs
-    errs = {k: float(np.abs(g[k] - c[k]).max())
-            for k in ("src_pos", "trans_pos", "ik_pos", "cm_pos")}
+    errs = {k: float(np.abs(g[k] - c[k]).max()) for k in POS_KEYS + ROT_KEYS}
     same_picks = bool(np.array_equal(g["nn_index"], c["nn_index"]))
     log(f"[cli] --src parity {dev.type} vs cpu, {len(g['src_pos'])} frames: "
         f"max abs "
-        f"position error {json.dumps(errs)}; NN picks identical: "
-        f"{same_picks}")
-    check(max(errs.values()) <= 1e-3, f"cli parity: positions differ {errs}")
-    return {"max_abs_position_err": errs, "nn_picks_identical": same_picks}
+        f"position and rotation error {json.dumps(errs)}; NN picks "
+        f"identical: {same_picks}")
+    check(max(errs.values()) <= PARITY_TOL,
+          f"cli parity: positions or rotations differ {errs}")
+    return {"max_abs_err": errs, "nn_picks_identical": same_picks}
 
 
 def cli_bf16_run(cfg, dev, root, *, clips=CLI_CLIPS, config=None):
@@ -2930,16 +2959,56 @@ DP_LOSS_RTOL = {"gen/loss_total": 2e-3, "gen/loss_recon": 2e-3,
 # step's gradients (:160-168)
 DP_PARAM_ATOL, DP_PARAM_RTOL = 5e-5, 2e-4
 DP_GRAD_RTOL, DP_GRAD_ATOL = 1e-4, 1e-5
-# After 10 AdamW steps on the card the 1-process trainer parts from its own
-# repeat by more than the parameter bar (hundreds of elements, up to 0.73
-# lr): Adam divides each element's step by its gradient's root mean
-# square, and float32's rounding differs run to run on the card.  The
-# 2-rank run is held to that reach: the farthest of a repeat and
+# As shipped, the 1-process trainer parts from its own repeat on the card
+# after 10 AdamW steps by more than the parameter bar (hundreds of
+# elements, up to 0.73 lr): Adam divides each element's step by its
+# gradient's root mean square, and the card's float32 sums came out in
+# another order run to run.  Under torch.use_deterministic_algorithms
+# every op of the step has a deterministic form and a repeat is
+# bit-identical (scripts/train_determinism_probe.py), so the phase trains
+# in that mode and holds the repeat to bit-identity.  2 ranks still part
+# from 1 by more than the bar: they sum the batch's gradients in another
+# order.  So the 2-rank run is held to float32's reach: the farthest of
 # DP_REACH_JITTERS runs from weights moved one float spacing, times
 # DP_REACH_FACTOR (the EMA, the losses and the first step's gradients
-# stay on their bars).
+# stay on their bars); its reading at the bar is printed.
 DP_REACH_JITTERS = 2
 DP_REACH_FACTOR = 2.0
+
+
+@contextlib.contextmanager
+def deterministic_training():
+    """torch.use_deterministic_algorithms in this process and, through
+    DETERMINISTIC_FLAG, in the ranks that cli/train spawns; cuBLAS's
+    deterministic workspace setting (on an H100, the size PyTorch picks
+    anyway)."""
+    keys = (DETERMINISTIC_FLAG, "CUBLAS_WORKSPACE_CONFIG")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update({DETERMINISTIC_FLAG: "1",
+                       "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def states_differ(one, two):
+    """The tensors of two trainer checkpoints (parameters, EMA, Adam
+    moments) that are not bit-identical."""
+    out = [f"{part}.{k}" for part in ("gen", "prj", "gen_ema")
+           for k, v in one[part].items() if not torch.equal(v, two[part][k])]
+    for i, (a, b) in enumerate(zip(
+            one["opt_state"]["optimizer"]["state"].values(),
+            two["opt_state"]["optimizer"]["state"].values())):
+        out += [f"adam.{i}.{k}" for k in ("exp_avg", "exp_avg_sq")
+                if not torch.equal(a[k], b[k])]
+    return out
 
 
 def no_tf32():
@@ -3155,8 +3224,8 @@ def compare_states(one, two):
 
 def judge_reach(dp, reach, failures):
     """The 2-rank run's parting from the 1-process run after the steps,
-    against float32's reach (the 1-process run's parting from its own
-    repeat and from runs whose weights start one float spacing away):
+    against float32's reach (the 1-process run's parting from runs whose
+    weights start one float spacing away):
     the EMA within the bar everywhere; per parameter part, the elements
     over the bar and the worst ratio to it, and the Adam moments' worst
     ratio to the gradient bar, each within DP_REACH_FACTOR x the farthest
@@ -3194,9 +3263,10 @@ def parallel_phase(cfg, cvae_cfg, dev, root, *, streams=STREAMS,
     PARALLEL_TOL, identical picks), each rank's launches exact for its
     shard.  (b) Data-parallel training: the first step's gradients on 2
     ranks against one process; cli/train --data-parallel 2 against
-    --data-parallel 1 on ``dp_clips`` clips (losses each step, the EMA,
-    and the parameters and Adam moments against float32's reach,
-    judge_reach); on the card, one nccl rank for a few steps.
+    --data-parallel 1 on ``dp_clips`` clips in deterministic mode (losses
+    each step, the EMA, the 1-process run's repeat bit-identical, and the
+    parameters and Adam moments against float32's reach, judge_reach); on
+    the card, one nccl rank for a few steps.
     (c) characterize --gen-ckpt on the 2-rank checkpoint, launches exact.
     Returns (result, (summed serving launches, characterize launches))."""
     t_phase = time.perf_counter()
@@ -3294,12 +3364,15 @@ def parallel_phase(cfg, cvae_cfg, dev, root, *, streams=STREAMS,
         f"{DP_GRAD_ATOL} x {gscale:.3g}) at {grad_worst[1]}; loss relative "
         f"gaps {json.dumps(loss_gaps)}")
 
-    # cli/train: --data-parallel 2 against --data-parallel 1
+    # cli/train: --data-parallel 2 against --data-parallel 1, every
+    # process in deterministic mode
     args = ["--config", step_config, "--data-dir", data_dp, "--max-epochs",
             "1", "--device", dev.type]
-    one_s, one_path, one_recs = train_run(os.path.join(work, "one"), args)
-    two_s, two_path, two_recs = train_run(
-        os.path.join(work, "two"), args + ["--data-parallel", "2"])
+    with deterministic_training():
+        one_s, one_path, one_recs = train_run(os.path.join(work, "one"),
+                                              args)
+        two_s, two_path, two_recs = train_run(
+            os.path.join(work, "two"), args + ["--data-parallel", "2"])
     batch = int(get_config(step_config)["batch_size"])
     steps = len(two_recs["gen/loss_total"])
     check(steps == len(one_recs["gen/loss_total"]) and steps > DP_WARMUP + 1,
@@ -3317,16 +3390,24 @@ def parallel_phase(cfg, cvae_cfg, dev, root, *, streams=STREAMS,
     ref_state = train_ckpt.load_checkpoint(one_path)
     state_worst = compare_states(ref_state,
                                  train_ckpt.load_checkpoint(two_path))
-    reach = {}
-    for name, jitter in (("repeat", None),) + tuple(
-            (f"jitter_{j}", TRAIN_JITTER_SEED + j)
-            for j in range(DP_REACH_JITTERS)):
-        _, path, _ = train_run(os.path.join(work, name), args,
-                               jitter_seed=jitter)
-        reach[name] = compare_states(ref_state,
-                                     train_ckpt.load_checkpoint(path))
-    log(f"[parallel] float32's reach, the 1-process run against its repeat"
-        f" and against runs from weights moved one float spacing: "
+    with deterministic_training():
+        _, path, _ = train_run(os.path.join(work, "repeat"), args)
+        repeat_differs = states_differ(ref_state,
+                                       train_ckpt.load_checkpoint(path))
+        reach = {}
+        for j in range(DP_REACH_JITTERS):
+            name = f"jitter_{j}"
+            _, path, _ = train_run(os.path.join(work, name), args,
+                                   jitter_seed=TRAIN_JITTER_SEED + j)
+            reach[name] = compare_states(ref_state,
+                                         train_ckpt.load_checkpoint(path))
+    if repeat_differs:
+        failures.append(f"the 1-process run does not repeat itself in "
+                        f"deterministic mode: {len(repeat_differs)} tensors "
+                        f"differ, first {repeat_differs[:3]}")
+    log(f"[parallel] deterministic mode: the 1-process run's repeat is "
+        f"bit-identical: {not repeat_differs}; float32's reach, the "
+        f"1-process run against runs from weights moved one float spacing: "
         f"{json.dumps(reach)}")
     judge_reach(state_worst, list(reach.values()), failures)
     rates = {"one": step_rate(one_recs, batch),
@@ -3392,6 +3473,9 @@ def parallel_phase(cfg, cvae_cfg, dev, root, *, streams=STREAMS,
         "first_step_loss_gaps": loss_gaps,
         "train_steps": steps, "train_batch": batch,
         "train_loss_worst": loss_worst, "train_state_worst": state_worst,
+        "train_repeat_identical": not repeat_differs,
+        "train_params_within_bar": not (state_worst["gen"][2]
+                                        or state_worst["prj"][2]),
         "train_reach": {name: {part: r[part] for part in ("gen", "prj")}
                         for name, r in reach.items()},
         "train_rates": rates, "nccl": nccl,
@@ -3402,6 +3486,132 @@ def parallel_phase(cfg, cvae_cfg, dev, root, *, streams=STREAMS,
     check(not failures, "parallel: " + "; ".join(failures))
     serving_launches = sum(s["launches"]["launches"] for s in serving)
     return result, (serving_launches, char_launches)
+
+
+# ---------------------------------------------------------------------------
+# orbax checkpoint directories
+# ---------------------------------------------------------------------------
+
+ORBAX_FIXTURE = os.path.join(REPO, "tests", "data", "orbax")
+ORBAX_STREAMS, ORBAX_FRAMES, ORBAX_DB_WINDOWS = 4, 60, 256
+ORBAX_SERVE_TOL = 1e-6
+
+
+def leaf_bits(tree, prefix=""):
+    """{path: (dtype, shape, bytes)} of a tree of NumPy arrays and bf16
+    tensors (lists and "0".."n-1" maps alike)."""
+    if isinstance(tree, dict):
+        out = {} if tree else {prefix: "empty"}
+        for k, v in tree.items():
+            out.update(leaf_bits(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        return leaf_bits({str(i): v for i, v in enumerate(tree)}, prefix)
+    if torch.is_tensor(tree):
+        return {prefix: (str(tree.dtype), tuple(tree.shape),
+                         tree.view(torch.int16).numpy().tobytes())}
+    a = np.asarray(tree)
+    return {prefix: (str(a.dtype), a.shape, a.tobytes())}
+
+
+def check_same_tree(tag, got, want):
+    """Every leaf of ``got`` equal to ``want``'s bit for bit; returns the
+    number of leaves."""
+    a, b = leaf_bits(got), leaf_bits(want)
+    check(sorted(a) == sorted(b),
+          f"{tag}: leaves {sorted(set(a) ^ set(b))[:5]} in one tree only")
+    bad = [k for k in a if a[k] != b[k]]
+    check(not bad, f"{tag}: {len(bad)} leaves differ, first {bad[:3]}")
+    return len(a)
+
+
+def orbax_phase(cfg, cvae_cfg, dev, root, *, streams=ORBAX_STREAMS,
+                frames=ORBAX_FRAMES, db_windows=ORBAX_DB_WINDOWS,
+                fixture=ORBAX_FIXTURE):
+    """Phase 14.  (a) The committed fixture: orbax directories written by
+    the JAX package (scripts/make_orbax_fixture.py), read by the port,
+    every leaf equal to its msgpack twin bit for bit.  (b) A ``cfg``-width
+    state (gen, gen_ema, prj; seeded) through the port's writer and
+    reader, bit for bit, both timed.  (c) gen_ema served from that
+    directory (``streams`` x ``frames``, deterministic) against the same
+    weights from a ``.ckpt``: outputs within ORBAX_SERVE_TOL, identical
+    picks, exactly the float32 launches the path implies.  Returns
+    (result, those launches)."""
+    t_phase = time.perf_counter()
+    fixture_leaves = {}
+    for name in ("gen", "cvae"):
+        t0 = time.perf_counter()
+        got = train_ckpt.load_checkpoint_orbax(os.path.join(fixture, name))
+        fixture_leaves[name] = [check_same_tree(
+            f"orbax fixture {name}", got,
+            read_msgpack(os.path.join(fixture, name + ".msgpack"))),
+            time.perf_counter() - t0]
+    log(f"[orbax] the JAX-written fixture read bit for bit against its "
+        f"msgpack twin: {json.dumps(fixture_leaves)} ([leaves, seconds])")
+
+    cpu = torch.device("cpu")
+    state = {"gen": init_generator(cfg, seed=0, device=cpu),
+             "gen_ema": init_generator(cfg, seed=3, device=cpu),
+             "prj": init_projector(seed=2, device=cpu)}
+    trees = {k: convert.pytree_from_state_dict(m.state_dict())
+             for k, m in state.items()}
+    path = os.path.join(root, "gen_001")
+    t0 = time.perf_counter()
+    train_ckpt.save_checkpoint_orbax(path, trees)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = train_ckpt.load_checkpoint_orbax(path)
+    read_s = time.perf_counter() - t0
+    leaves = check_same_tree("orbax round trip", back, trees)
+    nbytes = sum(t.numel() * t.element_size() for mod in state.values()
+                 for t in mod.state_dict().values())
+    disk = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+    log(f"[orbax] full-width gen, gen_ema and prj ({leaves} leaves, "
+        f"{nbytes / 1e6:.1f} MB, {disk / 1e6:.1f} MB on disk) written in "
+        f"{write_s:.3f} s and read back bit for bit in {read_s:.3f} s on "
+        f"the host")
+
+    ckpt_path = os.path.join(root, "gen_001.ckpt")
+    train_ckpt.save_checkpoint(ckpt_path,
+                               {"gen_ema": state["gen_ema"].state_dict()})
+    gens = {"orbax": convert.generator_from_jax(back["gen_ema"], cfg,
+                                                device=dev),
+            "ckpt": load_generator(ckpt_path, cfg, device=dev)}
+    cvae = init_cvae(cvae_cfg, seed=1, device=dev)
+    norm, consts, parents = character_setup(gens["orbax"], db_windows, dev)
+    clips = [make_mocha_bvh_data(T=frames + WINDOW_PAD, seed=700 + i)
+             for i in range(streams)]
+    outs, counts = {}, {}
+    for name, gen in gens.items():
+        reset_launches()
+        out, _, _ = run_slice(gen, cvae, norm, consts, parents, clips, dev,
+                              deterministic=True, root_dtype=torch.float64)
+        counts[name] = all_launches()
+        outs[name] = {k: v.cpu() for k, v in out.items()}
+    check_outputs(outs["orbax"], frames, streams)
+    check(torch.equal(outs["orbax"]["nn_index"], outs["ckpt"]["nn_index"]),
+          "orbax serving: NN picks differ from the .ckpt's")
+    keys = POS_KEYS + ROT_KEYS
+    errs = check_close("orbax serving", outs["orbax"], outs["ckpt"], keys,
+                       atol=ORBAX_SERVE_TOL)
+    want = expected_launches(cfg, [streams * frames], frames)
+    for name, n in counts.items():
+        check_launches(dev, n == {"launches": want, "launches_bf16": 0,
+                                  "launches_general": 0},
+                       f"orbax serving ({name}): launches {n}, want exactly "
+                       f"{want} float32 launches")
+    log(f"[orbax] gen_ema served from the orbax directory, {streams} streams"
+        f" x {frames} frames, against the same weights from a .ckpt: picks "
+        f"identical, max abs error per output {json.dumps(errs)}; launches "
+        f"{json.dumps(counts)}")
+    result = {"fixture": fixture_leaves, "round_trip_leaves": leaves,
+              "state_mb": nbytes / 1e6, "disk_mb": disk / 1e6,
+              "write_s": write_s, "read_s": read_s,
+              "serving_errors": errs, "launches": counts["orbax"]["launches"],
+              "phase_s": time.perf_counter() - t_phase}
+    log(f"[orbax] {json.dumps(result)}")
+    return result, counts["orbax"]["launches"]
 
 
 def build_sources():
@@ -3535,6 +3745,10 @@ def main():
         parallel_result, (parallel_launches, parallel_char_launches) = \
             phase("parallel", parallel_phase, cfg, cvae_cfg, dev, root)
     no_general("parallel")
+    with tempfile.TemporaryDirectory() as root:
+        orbax_result, orbax_launches = phase("orbax", orbax_phase, cfg,
+                                             cvae_cfg, dev, root)
+    no_general("orbax")
     log(f"[dataset] build {dataset_result['build_frames_per_s']:.1f} "
         f"frames/s ({dataset_result['frames']} frames, "
         f"{dataset_result['database_mb']:.1f} MB); encode "
@@ -3570,6 +3784,11 @@ def main():
         f" samples/s (one process, every step logged: "
         f"{parallel_result['train_rates']['one']['samples_per_s']:.1f}); "
         f"phase {parallel_result['phase_s']:.1f} s; on {card}")
+    log(f"[orbax] full-width gen, gen_ema and prj "
+        f"({orbax_result['state_mb']:.1f} MB): write "
+        f"{orbax_result['write_s']:.3f} s, read {orbax_result['read_s']:.3f}"
+        f" s on the card's host; phase {orbax_result['phase_s']:.1f} s; on "
+        f"{card}")
     log(f"[cvae] iterations/s {cvae_result['iterations_per_s']:.3f}, "
         f"updates/s {cvae_result['updates_per_s']:.2f}, rollout windows/s "
         f"{cvae_result['rollout_windows_per_s']:.1f} (median period "
@@ -3613,7 +3832,8 @@ def main():
                           "launches"],
                       "cvae_characterize": cvae_launches,
                       "parallel_serving": parallel_launches,
-                      "parallel_characterize": parallel_char_launches},
+                      "parallel_characterize": parallel_char_launches,
+                      "orbax_serving": orbax_launches},
                      launches, DESIGN),
         kernel_entry("attention_bf16", bf16_rows, bf16_edge_max_abs,
                      attention.SOURCE_BF16,

@@ -1,3 +1,4 @@
-"""BVH and database.bin file I/O."""
+"""BVH and database.bin file I/O, and checkpoints: msgpack, and orbax
+directories on OCDBT and zstd."""
 
 from . import bvh, database

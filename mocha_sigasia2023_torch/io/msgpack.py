@@ -155,7 +155,9 @@ def _ndarray(payload, base: int):
     return np.frombuffer(data, dtype).reshape(shape).copy()
 
 
-def _is_list(node: dict) -> bool:
+def is_index_map(node: dict) -> bool:
+    """Whether ``node`` is a map keyed exactly "0" .. "n-1" (n > 0): a
+    list or tuple as flax's state dicts store it."""
     return bool(node) and all(isinstance(k, str) for k in node) and \
         sorted(node) == sorted(str(i) for i in range(len(node)))
 
@@ -174,7 +176,7 @@ def _restore(node):
         if torch.is_tensor(chunks[0]):
             return torch.cat(chunks).reshape(shape)
         return np.concatenate(chunks).reshape(shape)
-    if _is_list(node):
+    if is_index_map(node):
         return [node[str(i)] for i in range(len(node))]
     return node
 

@@ -50,6 +50,12 @@ def const(values, like: torch.Tensor) -> torch.Tensor:
                          like.device)
 
 
+def eye(shape=(), dtype=torch.float32, device=None):
+    """Identity quaternion broadcast to ``shape + (4,)``."""
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype,
+                        device=device).expand(tuple(shape) + (4,))
+
+
 def length(x):
     return torch.sqrt(torch.sum(x * x, dim=-1))
 
@@ -322,6 +328,33 @@ def fk_vel_chain_all(lrot, lpos, lvel, lang, parents):
         gp = gp + rp
         gr = mul(gr, lrotp[..., col, :])
     return gr, gp, gv, ga
+
+
+def fk_chain_all(lrot, lpos, parents):
+    """:func:`fk` over ancestor chains: every joint accumulates the product
+    along its static root-to-joint chain, by gathers alone."""
+    anc = ancestor_chains(_as_parents_key(parents))
+    lrotp, lposp = _with_identity(lrot, lpos)
+    col = index(anc[:, 0], lrot.device)
+    gr, gp = lrotp[..., col, :], lposp[..., col, :]
+    for d in range(1, anc.shape[1]):
+        col = index(anc[:, d], lrot.device)
+        gp = gp + mul_vec(gr, lposp[..., col, :])
+        gr = mul(gr, lrotp[..., col, :])
+    return gr, gp
+
+
+def fk_chain(lrot, lpos, parents, bone):
+    """Global rotation and position of every joint on the root-to-``bone``
+    chain: {joint: (grot, gpos)}."""
+    chain = chain_to_root(_as_parents_key(parents), int(bone))
+    gr, gp = lrot[..., chain[0], :], lpos[..., chain[0], :]
+    out = {chain[0]: (gr, gp)}
+    for j in chain[1:]:
+        gp = mul_vec(gr, lpos[..., j, :]) + gp
+        gr = mul(gr, lrot[..., j, :])
+        out[j] = (gr, gp)
+    return out
 
 
 def fk(lrot, lpos, parents):

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..io.msgpack import is_index_map
 from .cvae import CVAE, CVAEConfig
 from .generator import Generator, GeneratorConfig
 from .projector import Projector, ProjectorConfig
@@ -47,6 +48,30 @@ def flatten_pytree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     for k, v in items:
         out.update(flatten_pytree(v, f"{prefix}.{k}" if prefix else str(k)))
     return out
+
+
+def pytree_from_state_dict(state_dict) -> Dict:
+    """The inverse of :func:`flatten_pytree`: dotted names as nested dicts,
+    maps keyed "0".."n-1" as lists, leaves as NumPy arrays (the JAX
+    package's pytree of a port module's ``state_dict()``)."""
+    tree: Dict = {}
+    for name, value in state_dict.items():
+        *parents, leaf = name.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value.detach().cpu().numpy() if torch.is_tensor(value) \
+            else np.asarray(value)
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if is_index_map(node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree)
 
 
 def _float32(v) -> torch.Tensor:

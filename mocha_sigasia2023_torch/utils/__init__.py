@@ -1,4 +1,5 @@
 """Config loading (a YAML-subset reader), output directories, seeding,
-parameter listings and metrics logging."""
+parameter listings, checkpoint listing and metrics logging."""
 
-from .config import describe_params, ensure_dirs, get_config, set_seed
+from .config import (describe_params, ensure_dirs, get_config,
+                     get_model_list, set_seed)

@@ -1,7 +1,8 @@
 """YAML config loading without PyYAML.
 
-Counterpart of ``get_config``, ``ensure_dirs``, ``set_seed`` and
-``describe_params`` in mocha_sigasia2023_tpu/utils/config.py.  The configs
+Counterpart of ``get_config``, ``ensure_dirs``, ``set_seed``,
+``get_model_list``, ``print_composite`` and ``describe_params`` in
+mocha_sigasia2023_tpu/utils/config.py.  The configs
 use a small subset of
 YAML, and the card's machine has no PyYAML, so this module reads that
 subset itself:
@@ -25,7 +26,7 @@ from __future__ import annotations
 import os
 import random
 import re
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -326,6 +327,36 @@ def set_seed(seed: int = 1777) -> None:
     np.random.seed(seed)
     torch.manual_seed(seed)
     os.environ["PYTHONHASHSEED"] = str(seed)
+
+
+def get_model_list(dirname: str, key: str) -> Optional[str]:
+    """The lexicographically last checkpoint file in ``dirname`` whose name
+    holds ``key`` (``.pt``, ``.msgpack`` or the port's ``.ckpt``)."""
+    if not os.path.isdir(dirname):
+        return None
+    files = [os.path.join(dirname, f) for f in os.listdir(dirname)
+             if os.path.isfile(os.path.join(dirname, f)) and key in f
+             and f.endswith((".pt", ".msgpack", ".ckpt"))]
+    return max(files) if files else None
+
+
+def print_composite(data, beg: str = "") -> None:
+    """Print the structure of nested dicts, lists and arrays or tensors:
+    containers with their sizes, arrays with their shapes."""
+    if isinstance(data, dict):
+        print(f"{beg} dict, size = {len(data)}")
+        for k, v in data.items():
+            print(f"  {beg}{k}:")
+            print_composite(v, beg + "    ")
+    elif isinstance(data, (list, tuple)):
+        print(f"{beg} list, len = {len(data)}")
+        for i, item in enumerate(data):
+            print(f"  {beg}item {i}")
+            print_composite(item, beg + "    ")
+    elif hasattr(data, "shape"):
+        print(f"{beg} array of size {tuple(data.shape)}")
+    else:
+        print(f"{beg} {data}")
 
 
 def describe_params(module: torch.nn.Module, title: str = "Generator") -> str:

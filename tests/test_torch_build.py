@@ -604,3 +604,25 @@ def test_cvae_phase_rehearses_on_the_cpu(counted, tmp_path):
     # 2 clips x 125 windows in one encoder chunk, 125 frames of 2 decodes
     # (1 on frame 0), the 125-window character in one chunk
     assert launches == 2 + (124 * 2 + 1) + 1
+
+
+def test_orbax_phase_rehearses_on_the_cpu(counted, tmp_path):
+    """The orbax phase at small widths on the CPU: the committed JAX
+    fixture bit for bit against its msgpack twins, the port's round trip,
+    and gen_ema served from the directory against the same weights from a
+    .ckpt with exactly the tuned launches its windows and frames imply."""
+    from mocha_sigasia2023_torch.models.cvae import CVAEConfig
+
+    cfg = GeneratorConfig(**dict(SMALL, encoder_dim_head=64,
+                                 decoder_dim_head=64))
+    cvae_cfg = CVAEConfig(output_seq=cfg.num_tokens, **CVAE_SMALL)
+    result, launches = counted.orbax_phase(
+        cfg, cvae_cfg, torch.device("cpu"), str(tmp_path), streams=2,
+        frames=20, db_windows=100)
+    assert {k: v[0] for k, v in result["fixture"].items()} == {
+        "gen": 44, "cvae": 46}
+    assert result["round_trip_leaves"] > 40
+    assert max(e for e, _ in result["serving_errors"].values()) == 0.0
+    # 2 clips x 20 windows in one encoder chunk, 20 frames of 2 decodes
+    # (1 on frame 0), one layer each
+    assert launches == 1 + (19 * 2 + 1)

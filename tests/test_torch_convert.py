@@ -10,6 +10,8 @@ the JAX pytree.  ``get_config`` (no PyYAML in the package) must equal
 ``yaml.safe_load`` on the configs.
 """
 
+import contextlib
+import io
 import os
 
 import numpy as np
@@ -23,6 +25,7 @@ import jax  # noqa: E402
 from mocha_sigasia2023_tpu.models import convert as jconvert  # noqa: E402
 from mocha_sigasia2023_tpu.models import cvae as jcvae  # noqa: E402
 from mocha_sigasia2023_tpu.models import generator as jgen  # noqa: E402
+from mocha_sigasia2023_tpu.utils import config as jconfig  # noqa: E402
 
 from mocha_sigasia2023_torch.models import convert  # noqa: E402
 from mocha_sigasia2023_torch.models import cvae as tcvae  # noqa: E402
@@ -179,6 +182,20 @@ def test_generator_from_torch_equals_generator_from_jax(weights, prefix):
         assert torch.equal(got.state_dict()[k], v), k
     for a, b in zip(_encode_decode(got), _encode_decode(want)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("which", [0, 2])
+def test_pytree_from_state_dict_inverts_the_jax_load(weights, which):
+    """A port module's state_dict back to the JAX pytree it was loaded
+    from: the same containers (lists of layers) and the same bits."""
+    params = weights[which]
+    module = (convert.generator_from_jax(params, tgen.GeneratorConfig(**SMALL),
+                                         device="cpu") if which == 0 else
+              convert.cvae_from_jax(params, tcvae.CVAEConfig(**CVAE_SMALL),
+                                    device="cpu"))
+    tree = convert.pytree_from_state_dict(module.state_dict())
+    _assert_trees_equal(tree, params)
+    assert all(x.dtype == np.float32 for x in jax.tree.leaves(tree))
 
 
 @pytest.mark.parametrize("prefix", ["", "module."])
@@ -338,3 +355,36 @@ def test_port_config_sections_equal_the_jax_config():
 def test_get_config_refuses_what_it_does_not_read(text):
     with pytest.raises(tconfig.ConfigError):
         tconfig.parse_yaml(text)
+
+
+def test_get_model_list_matches_jax(tmp_path):
+    assert tconfig.get_model_list(str(tmp_path / "none"), "gen") is None
+    for name in ("gen_001.pt", "gen_002.msgpack", "gen_010.ckpt",
+                 "gen_099.txt", "cvae_500.ckpt", "gen_003.orbax"):
+        (tmp_path / name).write_bytes(b"")
+    (tmp_path / "gen_900.ckpt").mkdir()        # a directory is not listed
+    for key in ("gen", "cvae", "prj"):
+        got = tconfig.get_model_list(str(tmp_path), key)
+        assert got == jconfig.get_model_list(str(tmp_path), key), key
+    assert got is None
+    assert tconfig.get_model_list(str(tmp_path), "gen").endswith(
+        "gen_010.ckpt")
+
+
+def test_print_composite_matches_jax():
+    tree = {"gen": {"layers": [np.zeros((2, 3)), np.ones(4)],
+                    "scale": 1.5},
+            "pair": (np.zeros(()), "name"), "empty": {}}
+
+    def printed(fn, data):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn(data, beg=">")
+        return buf.getvalue()
+
+    want = printed(jconfig.print_composite, tree)
+    assert printed(tconfig.print_composite, tree) == want
+    as_tensors = {"gen": {"layers": [torch.zeros(2, 3), torch.ones(4)],
+                          "scale": 1.5},
+                  "pair": (torch.zeros(()), "name"), "empty": {}}
+    assert printed(tconfig.print_composite, as_tensors) == want

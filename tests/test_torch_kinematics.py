@@ -141,6 +141,36 @@ def test_fk_vel_bone(bone):
         _same(a, b)
 
 
+@pytest.mark.parametrize("shape", [(), (3,), (2, 5)])
+def test_eye(shape):
+    t = tq.eye(shape)
+    j = jq.eye(shape)
+    assert t.shape == j.shape and t.dtype == torch.float32
+    _same(t, j, atol=0)
+
+
+def test_fk_chain_all_matches_jax_and_fk():
+    rot, pos, _, _ = _pose(9, (3, 4))
+    t = tq.fk_chain_all(torch.as_tensor(rot), torch.as_tensor(pos), PARENTS)
+    j = jq.fk_chain_all(jnp.asarray(rot), jnp.asarray(pos), PARENTS)
+    for a, b, c in zip(t, j, tq.fk(torch.as_tensor(rot),
+                                   torch.as_tensor(pos), PARENTS)):
+        _same(a, b)
+        _same(a, c)
+
+
+@pytest.mark.parametrize("bone", [0, 5, 17, 24])
+def test_fk_chain(bone):
+    rot, pos, _, _ = _pose(10, (6,))
+    t = tq.fk_chain(torch.as_tensor(rot), torch.as_tensor(pos), PARENTS,
+                    bone)
+    j = jq.fk_chain(jnp.asarray(rot), jnp.asarray(pos), PARENTS, bone)
+    assert list(t) == list(j)
+    for joint in j:
+        for a, b in zip(t[joint], j[joint]):
+            _same(a, b)
+
+
 def test_ik_two_bone():
     """A leg chain (hip, knee, heel) with reachable and out-of-reach
     targets, as the stream step's foot fixup gives it."""
