@@ -73,8 +73,8 @@ Phases (any failure exits non-zero; each prints its wall time):
      streams 0 and 1 held to dedicated single-character runners (positions
      within 1e-3, identical picks), and the session from a bf16 copy of
      the stack (peak memory, picks at least 90% identical).
-  8. live: LiveCharacterizer at full width, one stream, 1,010 frames of a
-     synthetic clip, a 2048-window character: the first 12 frames
+  8. live: LiveCharacterizer at full width, one stream, 510 frames of a
+     synthetic clip (the JAX package's bench.py --live takes 1,010), a 2048-window character: the first 12 frames
      (deterministic) held to the batch runner at S = 1 within 1e-5 / 1e-4;
      p50/p99 wall time of push_frame and of push_frame_pipelined (+ flush)
      against the 16.7 ms frame budget; attention launches exactly 2 per
@@ -90,7 +90,7 @@ Phases (any failure exits non-zero; each prints its wall time):
      generate_database, MotionDataset (norm.npz), collect_features
      cnt-norm (6,960 windows, 56 float32 launches) and character
      (Neutral_Princess running and walking: 4,560 windows, 36 launches),
-     launch counts exact; characterize --src-dir on 8 clips with the
+     launch counts exact; characterize --src-dir on 4 clips with the
      written norm files, every output finite with its frame count; then 4
      clips through the build and MotionDataset on the CPU too (integer
      blocks identical, floats within 2e-4, contact flips at most 0.1%,
@@ -136,7 +136,7 @@ Phases (any failure exits non-zero; each prints its wall time):
      under 0.2 x the mean update, the largest under 10 lr (R - 1)
      (tests/test_train.py:640-667); one with bf16 forwards, masters
      float32, finite, enc / cnt / dist within 5% of float32's.  Then
-     characterize --src-dir on 4 of the phase's clips with --cvae-ckpt
+     characterize --src-dir on 2 of the phase's clips with --cvae-ckpt
      on the written cvae_000040.ckpt and its cvae_norm.npz: exactly the
      tuned launches its windows and frames imply, every output finite.
   13. parallel (on the dataset phase's files): the parallel
@@ -1292,7 +1292,9 @@ def multi_phase(cfg, cvae_cfg, dev, *, streams=STREAMS, frames=FRAMES,
 # the live frame-at-a-time session
 # ---------------------------------------------------------------------------
 
-LIVE_FRAMES = 1010        # the JAX package's bench.py --live
+# the JAX package's bench.py --live takes 1,010 frames; 510 keep the
+# script inside half its time limit on a slow host
+LIVE_FRAMES = 510
 LIVE_HOLD_FRAMES = 12
 BUDGET_MS = 1000.0 / 60.0
 
@@ -1720,7 +1722,7 @@ DATASET_FRAMES = 1200            # 20 s a clip at 60 fps
 DATASET_ACTIONS = ("Walk", "Run")
 DATASET_STYLE = 17               # Neutral_Princess in configs/dataset.yaml
 DATASET_CHARACTER_ACTIONS = (6, 7)   # Run, Walk
-DATASET_CHARACTERIZE_CLIPS = 8
+DATASET_CHARACTERIZE_CLIPS = 4   # 8 until PR 11: the script's time
 DATASET_SUBSET = 4               # clips held to the port on the CPU
 DATASET_WINDOW, DATASET_STEP = 60, 20   # collect_features' windows
 ENCODE_BATCH = 256               # runtime/features.encode_windows
@@ -2615,7 +2617,7 @@ def train_phase(cfg, dev, root, *, config=None, epochs=TRAIN_EPOCHS,
 CVAE_SOURCE_STYLE = 2           # Neutral_AverageJoe in configs/dataset.yaml
 CVAE_ITERS = 40
 CVAE_WARMUP = 5                 # iterations left out of the period median
-CVAE_CHARACTERIZE_CLIPS = 4
+CVAE_CHARACTERIZE_CLIPS = 2     # 4 until PR 11: the script's time
 CVAE_METRICS = ("cvae/encoded_loss", "cvae/kl_loss", "cvae/cnt_loss",
                 "cvae/dist_loss")
 # one rollout on the card against the CPU (tests/test_train.py:640-667):
