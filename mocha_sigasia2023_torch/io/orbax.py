@@ -203,17 +203,17 @@ def read_tree(path: str) -> Any:
         if vtype in EMPTY_TYPES:
             leaves.append((kpath, EMPTY_TYPES[vtype]()))
         elif vtype in ARRAY_TYPES:
-            arrays.append((kpath, ".".join(k for k, _ in kpath), vtype))
+            arrays.append((kpath, ".".join(k for k, _ in kpath)))
         else:
             _fail(f"a leaf of type {vtype!r} at {entry}", meta_path)
-    docs = store.read_many(f"{a[1]}/.zarray".encode() for a in arrays)
+    docs = store.read_many(f"{name}/.zarray".encode() for _, name in arrays)
     plans = []
-    for (kpath, name, vtype), doc in zip(arrays, docs):
+    for (kpath, name), doc in zip(arrays, docs):
         zmeta = parse_zarray(doc, f"{path}:{name}")
         present = [(idx, f"{name}/{key}".encode())
                    for idx, key in chunk_keys(zmeta)]
         present = [(idx, key) for idx, key in present if key in store]
-        plans.append((kpath, name, zmeta, present, vtype))
+        plans.append((kpath, name, zmeta, present))
     raw = store.read_many(key for plan in plans for _, key in plan[3])
     packed = [(p, i) for p, plan in enumerate(plans)
               for i in range(len(plan[3])) if plan[2]["compressed"]]
@@ -222,7 +222,7 @@ def read_tree(path: str) -> Any:
     decoded = zstd.decompress_many([chunks[p][i] for p, i in packed])
     for (p, i), data in zip(packed, decoded):
         chunks[p][i] = data
-    for (kpath, name, zmeta, present, vtype), datas in zip(plans, chunks):
+    for (kpath, name, zmeta, present), datas in zip(plans, chunks):
         arr = assemble(zmeta, {idx: d for (idx, _), d in zip(present, datas)},
                        f"{path}:{name}")
         leaves.append((kpath, arr))
