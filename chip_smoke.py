@@ -73,8 +73,8 @@ Phases (any failure exits non-zero; each prints its wall time):
      streams 0 and 1 held to dedicated single-character runners (positions
      within 1e-3, identical picks), and the session from a bf16 copy of
      the stack (peak memory, picks at least 90% identical).
-  8. live: LiveCharacterizer at full width, one stream, 510 frames of a
-     synthetic clip (the JAX package's bench.py --live takes 1,010), a 2048-window character: the first 12 frames
+  8. live: LiveCharacterizer at full width, one stream, 1,010 frames of a
+     synthetic clip, a 2048-window character: the first 12 frames
      (deterministic) held to the batch runner at S = 1 within 1e-5 / 1e-4;
      p50/p99 wall time of push_frame and of push_frame_pipelined (+ flush)
      against the 16.7 ms frame budget; attention launches exactly 2 per
@@ -90,7 +90,7 @@ Phases (any failure exits non-zero; each prints its wall time):
      generate_database, MotionDataset (norm.npz), collect_features
      cnt-norm (6,960 windows, 56 float32 launches) and character
      (Neutral_Princess running and walking: 4,560 windows, 36 launches),
-     launch counts exact; characterize --src-dir on 4 clips with the
+     launch counts exact; characterize --src-dir on 8 clips with the
      written norm files, every output finite with its frame count; then 4
      clips through the build and MotionDataset on the CPU too (integer
      blocks identical, floats within 2e-4, contact flips at most 0.1%,
@@ -136,7 +136,7 @@ Phases (any failure exits non-zero; each prints its wall time):
      under 0.2 x the mean update, the largest under 10 lr (R - 1)
      (tests/test_train.py:640-667); one with bf16 forwards, masters
      float32, finite, enc / cnt / dist within 5% of float32's.  Then
-     characterize --src-dir on 2 of the phase's clips with --cvae-ckpt
+     characterize --src-dir on 4 of the phase's clips with --cvae-ckpt
      on the written cvae_000040.ckpt and its cvae_norm.npz: exactly the
      tuned launches its windows and frames imply, every output finite.
   13. parallel (on the dataset phase's files): the parallel
@@ -158,8 +158,9 @@ Phases (any failure exits non-zero; each prints its wall time):
      2e-4; the 1-process run's repeat bit-identical; the parameters at
      that bar and the Adam moments at the gradient bar, held to float32's
      reach on the card (the 1-process run against 2 runs from weights
-     moved one float spacing: 2 ranks sum the gradients in another order,
-     and part from 1 by more than the bar) times 2; steps/s and
+     moved one float spacing) times 2, and held to the bars themselves
+     against one process that sums the blocks' gradients as the 2 ranks
+     do (HalfBatchTrainer; its bit-identity printed); steps/s and
      samples/s; one nccl rank
      (--data-parallel 1 --backend nccl) for 3 steps.  Then characterize
      --gen-ckpt on the 2-rank checkpoint, launches exact.
@@ -240,16 +241,22 @@ from mocha_sigasia2023_torch.runtime.stream import (  # noqa: E402
     stack_consts, stack_stream_inputs)
 from mocha_sigasia2023_torch.train import checkpoint as train_ckpt  # noqa: E402
 from mocha_sigasia2023_torch.train.trainer import (  # noqa: E402
-    GeneratorTrainer, load_generator)
+    GeneratorTrainer, compute_gen_loss, load_generator)
 from mocha_sigasia2023_torch.train.trainer_cvae import (  # noqa: E402
     CVAETrainer)
 from mocha_sigasia2023_torch.utils import get_config  # noqa: E402
 
-# cli/train's ranks import this file as their main module: under
-# deterministic_training (the parallel phase) they take that mode too
+# cli/train's ranks import this file (or a script that imports it) as
+# their main module: under deterministic_training (the parallel phase)
+# they take that mode too ("warn" is its warn_only form), and this
+# process's TF32 flags (cli/train sets none; cuDNN picks its convolution
+# algorithms by them even where NVIDIA_TF32_OVERRIDE=0 keeps them fp32)
 DETERMINISTIC_FLAG = "CHIP_SMOKE_DETERMINISTIC"
-if os.environ.get(DETERMINISTIC_FLAG) == "1":
-    torch.use_deterministic_algorithms(True)
+if os.environ.get(DETERMINISTIC_FLAG) in ("1", "warn"):
+    torch.use_deterministic_algorithms(
+        True, warn_only=os.environ[DETERMINISTIC_FLAG] == "warn")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 # H100 SXM data sheet: HBM bandwidth, dense TF32 and bf16 tensor-core rates,
 # and the fp32 rate outside the tensor cores
@@ -1292,9 +1299,7 @@ def multi_phase(cfg, cvae_cfg, dev, *, streams=STREAMS, frames=FRAMES,
 # the live frame-at-a-time session
 # ---------------------------------------------------------------------------
 
-# the JAX package's bench.py --live takes 1,010 frames; 510 keep the
-# script inside half its time limit on a slow host
-LIVE_FRAMES = 510
+LIVE_FRAMES = 1010        # the JAX package's bench.py --live
 LIVE_HOLD_FRAMES = 12
 BUDGET_MS = 1000.0 / 60.0
 
@@ -1722,7 +1727,7 @@ DATASET_FRAMES = 1200            # 20 s a clip at 60 fps
 DATASET_ACTIONS = ("Walk", "Run")
 DATASET_STYLE = 17               # Neutral_Princess in configs/dataset.yaml
 DATASET_CHARACTER_ACTIONS = (6, 7)   # Run, Walk
-DATASET_CHARACTERIZE_CLIPS = 4   # 8 until PR 11: the script's time
+DATASET_CHARACTERIZE_CLIPS = 8
 DATASET_SUBSET = 4               # clips held to the port on the CPU
 DATASET_WINDOW, DATASET_STEP = 60, 20   # collect_features' windows
 ENCODE_BATCH = 256               # runtime/features.encode_windows
@@ -2617,7 +2622,7 @@ def train_phase(cfg, dev, root, *, config=None, epochs=TRAIN_EPOCHS,
 CVAE_SOURCE_STYLE = 2           # Neutral_AverageJoe in configs/dataset.yaml
 CVAE_ITERS = 40
 CVAE_WARMUP = 5                 # iterations left out of the period median
-CVAE_CHARACTERIZE_CLIPS = 2     # 4 until PR 11: the script's time
+CVAE_CHARACTERIZE_CLIPS = 4
 CVAE_METRICS = ("cvae/encoded_loss", "cvae/kl_loss", "cvae/cnt_loss",
                 "cvae/dist_loss")
 # one rollout on the card against the CPU (tests/test_train.py:640-667):
@@ -2969,8 +2974,10 @@ DP_GRAD_RTOL, DP_GRAD_ATOL = 1e-4, 1e-5
 # every op of the step has a deterministic form and a repeat is
 # bit-identical (scripts/train_determinism_probe.py), so the phase trains
 # in that mode and holds the repeat to bit-identity.  2 ranks still part
-# from 1 by more than the bar: they sum the batch's gradients in another
-# order.  So the 2-rank run is held to float32's reach: the farthest of
+# from 1 by more than the bar: each sums its block's gradients, and the
+# blocks' sums are added.  So the 2-rank run is held to the bars against
+# one process that adds the blocks' sums the same way (HalfBatchTrainer),
+# and to float32's reach against the plain 1-process run: the farthest of
 # DP_REACH_JITTERS runs from weights moved one float spacing, times
 # DP_REACH_FACTOR (the EMA, the losses and the first step's gradients
 # stay on their bars); its reading at the bar is printed.
@@ -2979,16 +2986,17 @@ DP_REACH_FACTOR = 2.0
 
 
 @contextlib.contextmanager
-def deterministic_training():
-    """torch.use_deterministic_algorithms in this process and, through
-    DETERMINISTIC_FLAG, in the ranks that cli/train spawns; cuBLAS's
-    deterministic workspace setting (on an H100, the size PyTorch picks
-    anyway)."""
+def deterministic_training(warn_only=False):
+    """torch.use_deterministic_algorithms (``warn_only``: an op with no
+    deterministic form warns instead of raising) in this process and,
+    through DETERMINISTIC_FLAG, in the ranks that cli/train spawns;
+    cuBLAS's deterministic workspace setting (on an H100, the size
+    PyTorch picks anyway)."""
     keys = (DETERMINISTIC_FLAG, "CUBLAS_WORKSPACE_CONFIG")
     saved = {k: os.environ.get(k) for k in keys}
-    os.environ.update({DETERMINISTIC_FLAG: "1",
+    os.environ.update({DETERMINISTIC_FLAG: "warn" if warn_only else "1",
                        "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
-    torch.use_deterministic_algorithms(True)
+    torch.use_deterministic_algorithms(True, warn_only=warn_only)
     try:
         yield
     finally:
@@ -3149,15 +3157,89 @@ class JitteredTrainer(GeneratorTrainer):
         jitter_weights([self.gen, self.prj], self.seed)
 
 
-def train_run(work, args, jitter_seed=None):
+class _KeysTaken(Exception):
+    """Ends a forward once its PatchNCE keys are taken."""
+
+
+class HalfBatchTrainer(GeneratorTrainer):
+    """A GeneratorTrainer in one process that takes a step's gradients as
+    PARALLEL_RANKS ranks of cli/train --data-parallel do: each rank's
+    block of the batch through its own forward and backward under
+    ``layers.batch_shard``, its PatchNCE keys every block's, then the
+    blocks' gradients and metrics summed in rank order and divided by
+    their number (``parallel.mesh.all_reduce_mean_``).  The 2-rank run
+    parts from it only where the ranks' arithmetic does."""
+
+    def _block_loss(self, i, block, norm, generator, gather):
+        with layers.batch_shard(i, PARALLEL_RANKS):
+            total, metrics, logits = compute_gen_loss(
+                self.gen, self.prj, self.prj_cfg, *block, norm,
+                self.parents, self.weights,
+                generator if self.train_forwards else None,
+                loss_dtype=self.loss_dtype,
+                compute_dtype=self.compute_dtype, remat=self.remat,
+                gather_keys=gather)
+            if gather is not None:
+                total.backward()
+        return metrics, logits
+
+    def backward(self, batch_src, batch_cha, norm, generator=None):
+        n = PARALLEL_RANKS
+        src, cha, norm = (self.on_device(t)
+                          for t in (batch_src, batch_cha, norm))
+        b = src["X"].shape[0] // n
+        # each block in its own allocation, as a rank's batch is
+        blocks = [tuple({k: v[i * b:(i + 1) * b].clone()
+                         for k, v in t.items()} for t in (src, cha))
+                  for i in range(n)]
+        keys = []
+
+        def take(k):
+            keys.append(k)
+            raise _KeysTaken
+
+        for i, block in enumerate(blocks):
+            try:
+                self._block_loss(i, block, norm, generator, take)
+            except _KeysTaken:
+                pass
+        every = torch.cat(keys, dim=1)
+        params = [*self.gen.parameters(), *self.prj.parameters()]
+        grads, metrics = [], []
+        for i, block in enumerate(blocks):
+            self.opt.zero_grad(set_to_none=True)
+            m, logits = self._block_loss(
+                i, block, norm, generator,
+                lambda k, i=i: (every, i * k.shape[1]))
+            grads.append([torch.zeros_like(p) if p.grad is None else p.grad
+                          for p in params])
+            metrics.append({k: v.detach() for k, v in m.items()})
+        for p, *gs in zip(params, *grads):
+            p.grad = gs[0].clone()
+            for g in gs[1:]:
+                p.grad += g
+            p.grad /= n
+        mean = {}
+        for k in metrics[0]:
+            mean[k] = metrics[0][k].clone()
+            for m in metrics[1:]:
+                mean[k] += m[k]
+            mean[k] /= n
+        return mean, logits.detach()
+
+
+def train_run(work, args, jitter_seed=None, trainer=None):
     """cli/train.main(args) from ``work`` (from weights moved one float
-    spacing with ``jitter_seed``); returns (its wall seconds, the
-    checkpoint, {tag: [(step, value, time)]} of rank 0's metrics)."""
+    spacing with ``jitter_seed``; with ``trainer``, a GeneratorTrainer
+    class in its place); returns (its wall seconds, the checkpoint, {tag:
+    [(step, value, time)]} of rank 0's metrics)."""
     os.makedirs(work)
     real = train_cli.GeneratorTrainer
     if jitter_seed is not None:
         JitteredTrainer.seed = jitter_seed
-        train_cli.GeneratorTrainer = JitteredTrainer
+        trainer = JitteredTrainer
+    if trainer is not None:
+        train_cli.GeneratorTrainer = trainer
     try:
         with contextlib.chdir(work):
             _, wall, _ = quiet(train_cli.main, args)
@@ -3266,9 +3348,10 @@ def parallel_phase(cfg, cvae_cfg, dev, root, *, streams=STREAMS,
     shard.  (b) Data-parallel training: the first step's gradients on 2
     ranks against one process; cli/train --data-parallel 2 against
     --data-parallel 1 on ``dp_clips`` clips in deterministic mode (losses
-    each step, the EMA, the 1-process run's repeat bit-identical, and the
-    parameters and Adam moments against float32's reach, judge_reach); on
-    the card, one nccl rank for a few steps.
+    each step, the EMA, the 1-process run's repeat bit-identical, the
+    parameters and Adam moments against float32's reach, judge_reach, and
+    at the bars against HalfBatchTrainer's run); on the card, one nccl
+    rank for a few steps.
     (c) characterize --gen-ckpt on the 2-rank checkpoint, launches exact.
     Returns (result, (summed serving launches, characterize launches))."""
     t_phase = time.perf_counter()
@@ -3403,6 +3486,8 @@ def parallel_phase(cfg, cvae_cfg, dev, root, *, streams=STREAMS,
                                    jitter_seed=TRAIN_JITTER_SEED + j)
             reach[name] = compare_states(ref_state,
                                          train_ckpt.load_checkpoint(path))
+        _, path, half_recs = train_run(os.path.join(work, "half_batch"),
+                                       args, trainer=HalfBatchTrainer)
     if repeat_differs:
         failures.append(f"the 1-process run does not repeat itself in "
                         f"deterministic mode: {len(repeat_differs)} tensors "
@@ -3412,6 +3497,31 @@ def parallel_phase(cfg, cvae_cfg, dev, root, *, streams=STREAMS,
         f"1-process run against runs from weights moved one float spacing: "
         f"{json.dumps(reach)}")
     judge_reach(state_worst, list(reach.values()), failures)
+    # the 2-rank run against one process that sums the blocks' gradients
+    # as the ranks do (HalfBatchTrainer): held to the bar, the parameters
+    # and EMA at the parameter bar, the Adam moments at the gradient bar
+    half = train_ckpt.load_checkpoint(path)
+    two_state = train_ckpt.load_checkpoint(two_path)
+    half_worst = compare_states(half, two_state)
+    half_differs = states_differ(half, two_state)
+    half_loss = max(abs(b[1] - a[1]) / abs(a[1]) for tag in DP_LOSS_RTOL
+                    for a, b in zip(half_recs[tag], two_recs[tag]))
+    for part in ("gen", "prj", "gen_ema"):
+        if half_worst[part][2]:
+            failures.append(
+                f"2 ranks against one process summing the blocks' "
+                f"gradients: {part} {half_worst[part][2]} elements over the "
+                f"bar, worst {half_worst[part][0]:.3g} x at "
+                f"{half_worst[part][1]}")
+    for key, got in half_worst["adam_moments_worst_over_gradient_bar"].items():
+        if got > 1.0:
+            failures.append(f"2 ranks against one process summing the "
+                            f"blocks' gradients: {key} {got:.3g} x the "
+                            f"gradient bar")
+    log(f"[parallel] 2 ranks against one process that sums the blocks' "
+        f"gradients as the ranks do: {len(half_differs)} tensors not "
+        f"bit-identical (first {half_differs[:3]}); losses worst relative "
+        f"gap {half_loss:.3g}; at the bars {json.dumps(half_worst)}")
     rates = {"one": step_rate(one_recs, batch),
              "two": step_rate(two_recs, batch)}
     log(f"[parallel] cli/train {steps} steps at batch {batch}, 2 ranks vs "
@@ -3480,6 +3590,9 @@ def parallel_phase(cfg, cvae_cfg, dev, root, *, streams=STREAMS,
                                         or state_worst["prj"][2]),
         "train_reach": {name: {part: r[part] for part in ("gen", "prj")}
                         for name, r in reach.items()},
+        "train_half_batch_worst": half_worst,
+        "train_half_batch_not_identical": len(half_differs),
+        "train_half_batch_loss_worst": half_loss,
         "train_rates": rates, "nccl": nccl,
         "characterize_s": char_s,
         "characterize_float32_launches": char_launches,

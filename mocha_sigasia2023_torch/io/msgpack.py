@@ -176,9 +176,24 @@ def _restore(node):
         if torch.is_tensor(chunks[0]):
             return torch.cat(chunks).reshape(shape)
         return np.concatenate(chunks).reshape(shape)
+    return _as_list(node)
+
+
+def _as_list(node: dict):
+    """``node`` as a list if it is an index map, else as it is."""
     if is_index_map(node):
         return [node[str(i)] for i in range(len(node))]
     return node
+
+
+def listify(node):
+    """Maps keyed "0".."n-1" made lists, bottom up: how every reader of
+    the port returns flax's lists and tuples."""
+    if isinstance(node, list):
+        return [listify(v) for v in node]
+    if not isinstance(node, dict):
+        return node
+    return _as_list({k: listify(v) for k, v in node.items()})
 
 
 def unpack(data: bytes) -> Any:

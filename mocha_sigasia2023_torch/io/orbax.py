@@ -170,17 +170,6 @@ def _insert(tree: dict, path, value):
     node[path[-1][0]] = value
 
 
-def _listify(node):
-    """Maps keyed "0".."n-1" made lists, bottom up (the msgpack reader's
-    contract); key_type 1 entries are such maps too."""
-    if not isinstance(node, dict):
-        return node
-    node = {k: _listify(v) for k, v in node.items()}
-    if msgpack.is_index_map(node):
-        return [node[str(i)] for i in range(len(node))]
-    return node
-
-
 def read_tree(path: str) -> Any:
     """The checkpoint directory ``path`` as nested dicts and lists of
     arrays."""
@@ -229,7 +218,8 @@ def read_tree(path: str) -> Any:
     tree: dict = {}
     for kpath, value in leaves:
         _insert(tree, kpath, value)
-    return _listify(tree)
+    # key_type 1 entries are index maps too
+    return msgpack.listify(tree)
 
 
 def _flatten(tree, prefix=()):

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..io.msgpack import is_index_map
+from ..io.msgpack import listify
 from .cvae import CVAE, CVAEConfig
 from .generator import Generator, GeneratorConfig
 from .projector import Projector, ProjectorConfig
@@ -62,16 +62,7 @@ def pytree_from_state_dict(state_dict) -> Dict:
             node = node.setdefault(p, {})
         node[leaf] = value.detach().cpu().numpy() if torch.is_tensor(value) \
             else np.asarray(value)
-
-    def lists(node):
-        if not isinstance(node, dict):
-            return node
-        node = {k: lists(v) for k, v in node.items()}
-        if is_index_map(node):
-            return [node[str(i)] for i in range(len(node))]
-        return node
-
-    return lists(tree)
+    return listify(tree)
 
 
 def _float32(v) -> torch.Tensor:

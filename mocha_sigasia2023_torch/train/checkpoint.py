@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..io import orbax
+from ..io.msgpack import is_index_map
 
 SUFFIX = ".ckpt"
 
@@ -68,9 +69,8 @@ def restore_like(template, state):
     def items(node, n, where):
         if isinstance(node, (list, tuple)):
             values = list(node)
-        elif isinstance(node, dict) and set(node) == {str(i)
-                                                      for i in range(n)}:
-            values = [node[str(i)] for i in range(n)]
+        elif isinstance(node, dict) and (is_index_map(node) or not node):
+            values = [node[str(i)] for i in range(len(node))]
         else:
             raise ValueError(f"restore_like: {where or 'the root'} holds "
                              f"no {n} items")

@@ -8,7 +8,8 @@ chip_smoke.parallel_phase on them: sharded serving on 2 gloo ranks of one
 card against one process, the first training step and 10 steps of
 cli/train --data-parallel 2 against one process (with float32's reach:
 the 1-process run's repeat and 2 runs from weights moved one float
-spacing), one nccl rank, and characterize on the 2-rank checkpoint.  The
+spacing) and against one process that sums the blocks' gradients as the
+ranks do, one nccl rank, and characterize on the 2-rank checkpoint.  The
 phase prints its readings; a failed check raises.  About 3 minutes on an
 H100.
 """

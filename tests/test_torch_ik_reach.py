@@ -16,6 +16,7 @@ use for rotations (tests/test_torch_stream.py).
 
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("jax")
 import jax  # noqa: E402
@@ -31,6 +32,7 @@ from mocha_sigasia2023_tpu.models import generator as jgen  # noqa: E402
 from mocha_sigasia2023_tpu.runtime import features as jfeat  # noqa: E402
 from mocha_sigasia2023_tpu.runtime import stream as jstream  # noqa: E402
 
+from mocha_sigasia2023_torch.data import dataset as pds  # noqa: E402
 from mocha_sigasia2023_torch.models import convert  # noqa: E402
 from mocha_sigasia2023_torch.models.cvae import (  # noqa: E402
     CVAEConfig, init_cvae)
@@ -57,34 +59,51 @@ def _jitter(tree, seed):
     return jax.tree.map(move, tree)
 
 
-def _run(params, cparams):
+def _character_and_clips():
+    """The weight-free inputs: the character's featurized clip and norm
+    statistics, and the streams' clips."""
     cfg = jgen.GeneratorConfig()
-    ccfg = jcvae.CVAEConfig(output_seq=cfg.num_tokens)
     cha = make_mocha_bvh_data(T=DB_WINDOWS + cfg.nframes // 4, seed=10_000,
                               walk_speed=60.0)
     f0 = jpre.featurize_clip_jit(cha)
     w = jwin.window_features(f0, cfg.nframes, 10, padded=False)
-    X, Y, root = jds.window_xy_features(
-        w["rotations"], w["positions"], w["velocities"],
-        w["angular_velocities"], f0["bone_parents"])
+    # the port's window_xy_features (held to the JAX one elsewhere) spares
+    # a compile
+    X, Y, root = pds.window_xy_features(
+        *(torch.as_tensor(np.array(w[k])) for k in (
+            "rotations", "positions", "velocities", "angular_velocities")),
+        np.asarray(f0["bone_parents"]))
     norm = jds.compute_norm_stats(np.asarray(X), np.asarray(Y),
                                   np.asarray(root))
+    clips = [make_mocha_bvh_data(T=FRAMES + WINDOW_PAD, seed=50 + i)
+             for i in range(STREAMS)]
+    return cha, norm, clips
+
+
+def _run(params, cparams, inputs, runner=None):
+    """The batch runner's outputs for these weights, and the runner.  A
+    runner built for other weights of the same shapes is called through
+    its jitted body with these, so that it compiles once."""
+    cfg = jgen.GeneratorConfig()
+    ccfg = jcvae.CVAEConfig(output_seq=cfg.num_tokens)
+    cha, norm, clips = inputs
     cha_j = jfeat.clip_stream_features_device(cha, params, cfg, norm)
     cha_j = {k: (np.asarray(v) if k != "bone_names" else v)
              for k, v in cha_j.items()}
     consts = jbuild_consts(norm, jfeat.compute_cnt_norm(cha_j["encoded"],
                                                         cha_j["cnt"]),
                            None, cha_j)
-    clips = [make_mocha_bvh_data(T=FRAMES + WINDOW_PAD, seed=50 + i)
-             for i in range(STREAMS)]
     frame0, xs = jfeat.batch_stream_features_device(clips, params, cfg, norm,
                                                     emit_cnt=False)
-    runner = jstream.make_batch_runner(params, cfg, cparams, ccfg, consts,
-                                       cha_j["bone_parents"],
-                                       deterministic=True)
-    out = runner(frame0, xs, jax.random.split(jax.random.PRNGKey(7),
-                                              STREAMS))
-    return jax.tree.map(np.asarray, out)
+    keys = jax.random.split(jax.random.PRNGKey(7), STREAMS)
+    if runner is None:
+        runner = jstream.make_batch_runner(params, cfg, cparams, ccfg, consts,
+                                           cha_j["bone_parents"],
+                                           deterministic=True)
+        out = runner(frame0, xs, keys)
+    else:
+        out = runner._inner(params, cparams, consts, frame0, xs, keys, None)
+    return jax.tree.map(np.asarray, out), runner
 
 
 def test_jax_runner_shares_the_ik_rotations_float32_reach():
@@ -94,8 +113,10 @@ def test_jax_runner_shares_the_ik_rotations_float32_reach():
     cparams = convert.pytree_from_state_dict(
         init_cvae(CVAEConfig(output_seq=cfg.num_tokens), seed=1,
                   device="cpu").state_dict())
-    a = _run(params, cparams)
-    b = _run(_jitter(params, 4100), _jitter(cparams, 4101))
+    inputs = _character_and_clips()
+    a, runner = _run(params, cparams, inputs)
+    b, _ = _run(_jitter(params, 4100), _jitter(cparams, 4101), inputs,
+                runner)
     np.testing.assert_array_equal(a["nn_index"], b["nn_index"])
     moves = {k: float(np.abs(a[k] - b[k]).max()) for k in POS_KEYS + ROT_KEYS}
     print(f"one-spacing jitter, JAX runner: {moves}")

@@ -1,8 +1,9 @@
 """chip_smoke.py's parallel phase (13) rehearsed on the CPU at small
 widths: two gloo ranks serve 4 streams x 20 frames sharded and take the
 first training step, cli/train runs at --data-parallel 1 and 2 in
-deterministic mode (and the 1-process run's repeat, bit-identical, and
-its jittered runs, float32's reach), and
+deterministic mode (and the 1-process run's repeat, bit-identical, its
+jittered runs, float32's reach, and one process that sums the blocks'
+gradients as the ranks do, at the bars), and
 characterize serves the 2-rank checkpoint; every check of the phase
 holds but the launch counts, which count on the card only."""
 
@@ -59,3 +60,5 @@ def test_parallel_phase_rehearses_on_the_cpu(tmp_path):
     assert max(e for e, _ in result["serving_errors"].values()) <= 1e-3
     assert result["first_step_gradient_worst"][0] <= 1.0
     assert result["train_repeat_identical"]
+    half = result["train_half_batch_worst"]
+    assert max(half[p][0] for p in ("gen", "prj", "gen_ema")) <= 1.0, half
