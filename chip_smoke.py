@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; each prints its wall time):
      for matmuls and cuDNN (the savgol and temporal convs go through cuDNN).
   2. build: compile every CUDA source of the port from this checkout (the
      two tuned attention kernels and the general one), one nvcc per
-     source, started together.
+     source, and the host codec of the BVH I/O (io/csrc/mocha_native.cpp)
+     with g++, all started together.
   3. kernels, then kernels (bf16): each instance of the attention kernel
      against its plain PyTorch version at the shapes the serving path
      gives it (float32 at atol 2e-5 / rtol 1e-4; bfloat16 compared in
@@ -64,6 +65,15 @@ Phases (any failure exits non-zero; each prints its wall time):
      character).  Then one --bf16 run
      on the same files: every output finite with its clip's frame count,
      the sources through the bf16 kernel.
+  6b. codec: every MOTION text that phase 6 and its --bf16 run handed the
+     host codec (io/csrc/mocha_native.cpp) to parse, and every block they
+     handed it to format, parsed and formatted again natively and by the
+     plain Python versions, each side timed: values bit-identical, text
+     byte-identical.  Then a MOTION text of glued signs, stray points,
+     commas, hex floats, exponents with no digits, junk tokens and NaN
+     payloads must read to the values glibc's strtod gives, both ways,
+     and a block of signed zeros, signed NaNs and infinities must format
+     alike, with "-nan" for the negative NaN.
   7. multi: the slice's 64 x 240 streams against a stack of 30 synthetic
      characters (2048, 2032, ..., 1584 windows, each its own clip and
      norms; about 11 GB of float32 database on the card), stream s served
@@ -218,7 +228,7 @@ from mocha_sigasia2023_torch.data.preprocess import featurize_clip  # noqa: E402
 from mocha_sigasia2023_torch.data.synthetic import make_mocha_bvh_data  # noqa: E402
 from mocha_sigasia2023_torch.data.windows import (  # noqa: E402
     full_window_indices, padded_window_indices, window_features)
-from mocha_sigasia2023_torch.io import bvh  # noqa: E402
+from mocha_sigasia2023_torch.io import bvh, native  # noqa: E402
 from mocha_sigasia2023_torch.io.msgpack import read_msgpack  # noqa: E402
 from mocha_sigasia2023_torch.models import convert  # noqa: E402
 from mocha_sigasia2023_torch.models import cvae as cvae_mod  # noqa: E402
@@ -1654,6 +1664,122 @@ def cli_phase(cfg, dev, root, *, clips=CLI_CLIPS, db_windows=DB_WINDOWS,
               "tchunk_max_abs": tchunk_err, "parity": parity}
     log(f"[cli] {json.dumps(result)}")
     return result, launches
+
+
+@contextlib.contextmanager
+def codec_inputs():
+    """Keep every MOTION text that ``bvh.load`` hands the host codec and
+    every block that ``bvh.save`` hands it, while the codec does its
+    work: yields (texts, blocks)."""
+    texts, blocks = [], []
+    parse, fmt = native.parse_floats, native.format_frames
+
+    def parse_kept(text):
+        texts.append(text)
+        return parse(text)
+
+    def format_kept(values):
+        blocks.append(values)
+        return fmt(values)
+
+    native.parse_floats, native.format_frames = parse_kept, format_kept
+    try:
+        yield texts, blocks
+    finally:
+        native.parse_floats, native.format_frames = parse, fmt
+
+
+# the probe table of tests/test_torch_native.py as one MOTION text, and
+# the values glibc's strtod loop reads from it (NaNs by their bits)
+CODEC_PROBE = ("1.0-2.0 3\n1..2 9\n1,5 2\n0x1p3 4\n0x 5\n1.5e 2\n1e+ 6\n"
+               "abc 1 2\n+-1 7\n.e1 8\ninfinit 3\nnan(0x1) 1\nabc\f1 2\n"
+               "inf -inf nan\nINF NaN -Infinity\n1e400 -1e-400\n1\v2\n"
+               "-nan(0x7) 0x1.8p1x 4.9e-324 1\u00e92 3\n")
+CODEC_PROBE_VALUES = [
+    1.0, -2.0, 3.0, 1.0, 0.2, 9.0, 1.0, 2.0, 8.0, 4.0, 0.0, 5.0, 1.5, 2.0,
+    1.0, 6.0, 1.0, 2.0, 7.0, 8.0, math.inf, 3.0, 0x7FF8000000000001, 1.0,
+    2.0, math.inf, -math.inf, 0x7FF8000000000000, math.inf,
+    0x7FF8000000000000, -math.inf, math.inf, -0.0, 1.0, 2.0,
+    0xFFF8000000000007, 3.0, 5e-324, 1.0, 3.0]
+CODEC_PROBE_BLOCK = [[0.0, -0.0, math.nan, -math.nan, math.inf, -math.inf,
+                      1e20, -1e300, 5e-324, 999999.9999995]]
+
+
+def float_bits(values):
+    return np.asarray(values, dtype=np.float64).view(np.uint64)
+
+
+def host_cpu() -> str:
+    """The host CPU's model name from /proc/cpuinfo, with its vendor,
+    family and model (a virtual machine may give no name, or a generic
+    one)."""
+    fields = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break                       # the first processor's block
+            key, _, value = line.partition(":")
+            fields[key.strip()] = value.strip()
+    return (f"{fields.get('model name', 'unknown')} "
+            f"({fields.get('vendor_id', '?')} family "
+            f"{fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')})")
+
+
+def codec_check(texts, blocks):
+    """Phase 6b: the host codec on the MOTION texts and blocks that
+    ``codec_inputs`` kept, against its plain versions: every value
+    bit-identical, every text byte-identical, each side timed; and on the
+    probe text and block."""
+    check(texts and blocks, f"codec: {len(texts)} MOTION texts and "
+          f"{len(blocks)} blocks kept")
+    handed = len(texts)
+    texts = list(dict.fromkeys(texts))     # the CLI runs reread their inputs
+    t0 = time.perf_counter()
+    parsed = [native.parse_floats(t) for t in texts]
+    parse_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parsed_plain = [native.parse_floats_plain(t) for t in texts]
+    parse_plain_s = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(parsed, parsed_plain)):
+        check(np.array_equal(float_bits(a), float_bits(b)),
+              f"codec: MOTION text {i} parses to other values natively")
+    t0 = time.perf_counter()
+    written = [native.format_frames(b) for b in blocks]
+    format_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    written_plain = [native.format_frames_plain(b) for b in blocks]
+    format_plain_s = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(written, written_plain)):
+        check(a == b, f"codec: block {i} formats to other text natively")
+
+    want = [v if isinstance(v, int) else int(float_bits(v))
+            for v in CODEC_PROBE_VALUES]
+    for name, parse in (("native", native.parse_floats),
+                        ("plain", native.parse_floats_plain)):
+        got = float_bits(parse(CODEC_PROBE)).tolist()
+        check(got == want, f"codec: the probe text reads {got} ({name}), "
+              f"want {want}")
+    probe_text = native.format_frames(np.array(CODEC_PROBE_BLOCK))
+    check(probe_text == native.format_frames_plain(
+              np.array(CODEC_PROBE_BLOCK)) and " -nan " in probe_text,
+          f"codec: the probe block formats to {probe_text!r}")
+    result = {"source": os.path.relpath(native.SOURCE, REPO),
+              "build_s": build.BUILD_INFO[native.SOURCE]["seconds"],
+              "host_cpu": host_cpu(),
+              "motion_texts": len(texts), "motion_texts_handed": handed,
+              "values_parsed": sum(len(a) for a in parsed),
+              "blocks": len(blocks),
+              "values_formatted": sum(b.size for b in blocks),
+              "bytes_formatted": sum(len(t) for t in written),
+              "parse_native_s": parse_native_s,
+              "parse_plain_s": parse_plain_s,
+              "format_native_s": format_native_s,
+              "format_plain_s": format_plain_s,
+              "parse_bit_identical": True, "format_byte_identical": True,
+              "probe_values": len(want)}
+    log(f"[codec] {json.dumps(result)}")
+    return result
 
 
 def cli_parity(root, dev, extra):
@@ -3737,18 +3863,21 @@ def build_sources():
 
 
 def build_phase():
-    """Every CUDA source of the port, one nvcc each, started together."""
+    """Every CUDA source of the port, one nvcc each, and the host codec,
+    with g++, all started together."""
     t0 = time.perf_counter()
-    sources = build_sources()
+    sources = build_sources() + [native.SOURCE]
     build.build_all(sources)
     for src in sources:
         info = build.BUILD_INFO[src]
-        log(f"[build] {src}: {info['seconds']:.2f} s -> {info['path']}")
+        log(f"[build] {os.path.basename(src)}: {info['seconds']:.2f} s -> "
+            f"{info['path']}")
         for line in info["log"].splitlines():
             log(f"[build]   {line}")
     for route, kernels in attention.ROUTES.items():
         for dtype in kernels:
             attention.load_library(dtype, route)
+    native.get_lib()
     log(f"[build] phase {time.perf_counter() - t0:.2f} s")
 
 
@@ -3809,11 +3938,17 @@ def main():
     phase("parity", parity_phase, cfg, cvae_cfg, dev)
     no_general("parity")
 
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as root, \
+            codec_inputs() as (texts, blocks):
         cli_result, cli_launches = phase("cli", cli_phase, cfg, dev, root)
         _, cli_bf16_launches = phase("cli --bf16", cli_bf16_run, cfg, dev,
                                      root)
     no_general("cli")
+    check(len(texts) > CLI_CLIPS and len(blocks) >= 3 * CLI_CLIPS,
+          f"codec: the cli phase handed the codec {len(texts)} MOTION texts "
+          f"and {len(blocks)} blocks")
+    codec = phase("codec", codec_check, texts, blocks)
+    del texts, blocks
     lo, hi = cli_result["cli_frames_per_s_range"]
     log(f"[cli] median of {CLI_REPEATS}: {cli_result['cli_frames_per_s']:.1f}"
         f" frames/s through main() (range {lo:.1f}-{hi:.1f}), slice e2e "
@@ -3821,6 +3956,16 @@ def main():
         f"{cli_result['bvh_parse_s']:.3f} s + export "
         f"{cli_result['export_s']:.3f} s = "
         f"{cli_result['parse_export_share']:.3f} of main(); on {card}")
+    log(f"[codec] host codec on the cli phase's files, native against plain:"
+        f" {codec['motion_texts']} distinct MOTION texts of "
+        f"{codec['motion_texts_handed']} parsed ({codec['values_parsed']} "
+        f"values) parsed in {codec['parse_native_s']:.4f} s against "
+        f"{codec['parse_plain_s']:.4f} s, bit-identical; {codec['blocks']} "
+        f"blocks ({codec['values_formatted']} values) formatted in "
+        f"{codec['format_native_s']:.4f} s against "
+        f"{codec['format_plain_s']:.4f} s, byte-identical; the probe text's "
+        f"{codec['probe_values']} values as glibc's strtod reads them; built "
+        f"in {codec['build_s']:.2f} s; host {codec['host_cpu']}; on {card}")
 
     multi_result, multi_launches = phase("multi", multi_phase, cfg, cvae_cfg,
                                          dev)

@@ -6,7 +6,8 @@ batched per-frame stream step -> poses -> BVH.  The layout mirrors the
 JAX package so each module's counterpart is easy to find:
 
 cli         ``python -m mocha_sigasia2023_torch.cli.characterize``.
-io          BVH read/write.
+io          BVH read/write (the MOTION text through the C++ host codec,
+            io/native), database.bin, msgpack and orbax checkpoints.
 utils       the config reader (a YAML subset, no PyYAML), directories,
             metrics logging, tracing and stage timing.
 kinematics  quaternion algebra, FK/IK, the foot-contact springs.

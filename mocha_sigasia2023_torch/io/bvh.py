@@ -5,8 +5,9 @@ Counterpart of mocha_sigasia2023_tpu/io/bvh.py, with the same contract:
 file channel order), ``positions`` (frames, J, 3; root driven by the file,
 children from offsets), ``offsets`` (J, 3), ``parents`` (J,), ``names``
 (list[str]), ``order`` (the rotation-channel order, e.g. ``'zyx'``) and
-``frametime``.  The frame block is decoded and formatted with NumPy and
-Python's ``%f``: this is host text I/O, with no native library.
+``frametime``.  The frame block is decoded and formatted by the port's
+C++ host codec (``io/native.py``), as the JAX package's native library
+does it: strtod's reading of every token, C's ``%f`` on export.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import os
 from typing import Dict, List
 
 import numpy as np
+
+from . import native
 
 _CHANNEL_TO_AXIS = {"Xrotation": "x", "Yrotation": "y", "Zrotation": "z"}
 _AXIS_TO_CHANNEL = {v: k for k, v in _CHANNEL_TO_AXIS.items()}
@@ -108,7 +111,7 @@ def load(filename_or_buffer, order: str | None = None) -> Dict:
             frametime = float(tok[2])
             break
 
-    data = np.array(" ".join(lines[i:]).split(), dtype=np.float64)
+    data = native.parse_floats(" ".join(lines[i:]))
     positions = np.repeat(offsets_np[None], fnum, axis=0)
     rotations = np.zeros((fnum, J, 3), dtype=np.float64)
 
@@ -148,15 +151,6 @@ def _children_of(parents: np.ndarray) -> Dict[int, List[int]]:
         if p >= 0:
             ch[int(p)].append(j)
     return ch
-
-
-def _format_frames(values: np.ndarray) -> str:
-    """(rows, cols) matrix -> the MOTION block: each value as ``%f``
-    followed by a space, one row per line."""
-    values = np.asarray(values, dtype=np.float64)
-    nrows, ncols = values.shape
-    row = "%f " * ncols + "\n"
-    return (row * nrows) % tuple(values.ravel().tolist())
 
 
 def save(filename, data: Dict, frametime: float = 1.0 / 60.0,
@@ -218,7 +212,7 @@ def save(filename, data: Dict, frametime: float = 1.0 / 60.0,
         if save_positions or j == 0:
             blocks.append(poss[:, j, :3])
         blocks.append(rots[:, j][:, perm])
-    buf.write(_format_frames(np.concatenate(blocks, axis=1)))
+    buf.write(native.format_frames(np.concatenate(blocks, axis=1)))
 
     out = buf.getvalue()
     if hasattr(filename, "write"):

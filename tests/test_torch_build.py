@@ -13,6 +13,7 @@ import importlib.util
 import os
 import re
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -21,7 +22,7 @@ import torch
 from mocha_sigasia2023_torch.cli import collect_features, generate_database
 from mocha_sigasia2023_torch.data.dataset import MotionDataset
 from mocha_sigasia2023_torch.data.synthetic import make_mocha_bvh_data
-from mocha_sigasia2023_torch.io import bvh
+from mocha_sigasia2023_torch.io import bvh, native
 from mocha_sigasia2023_torch.models import layers
 from mocha_sigasia2023_torch.models.generator import GeneratorConfig
 from mocha_sigasia2023_torch.ops import attention, build
@@ -165,6 +166,36 @@ def test_build_all_starts_one_compile_per_source(tmp_path, monkeypatch):
     assert started == ["kern.cu", "two.cu"]   # cached: no second compile
 
 
+def test_build_all_times_each_compile_to_its_own_end(tmp_path, monkeypatch):
+    """A build's seconds stop when its own compiler ends: a fast compile
+    waited on after a slow one does not take the slow one's time."""
+    src = _csrc(tmp_path, monkeypatch)
+    _write(src / "two.cu", "int g() { return 2; }\n")
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "out"))
+    monkeypatch.setattr(build, "find_nvcc", lambda: "nvcc")
+
+    class Proc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            self.out = cmd[cmd.index("-o") + 1]
+            self.slow = cmd[-1].endswith("kern.cu")
+
+        def communicate(self):
+            time.sleep(0.5 if self.slow else 0.0)
+            with open(self.out, "w") as f:
+                f.write("lib")
+            return "", None
+
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(build.subprocess, "Popen", Proc)
+    build.build_all(["kern.cu", "two.cu"])
+    assert build.BUILD_INFO["kern.cu"]["seconds"] >= 0.5
+    assert build.BUILD_INFO["two.cu"]["seconds"] < 0.25
+
+
 def test_stress_patches_apply_to_the_kernels():
     """scripts/attention_stress.py patches the shared header; each patch
     still finds its text, so its "unfenced" variant is the committed
@@ -222,21 +253,56 @@ def smoke():
 
 
 def test_build_phase_lists_all_three_sources(smoke, monkeypatch):
+    """The three CUDA sources and the host codec are built in one
+    build_all call, then every kernel's library and the codec's load."""
     assert smoke.build_sources() == ["attention.cu", "attention_bf16.cu",
                                      "attention_general.cu"]
+    sources = smoke.build_sources() + [native.SOURCE]
     built, loaded = [], []
     monkeypatch.setattr(smoke.build, "build_all",
                         lambda sources: built.append(list(sources)))
     monkeypatch.setattr(smoke.build, "BUILD_INFO", {
-        s: {"seconds": 0.0, "log": "", "path": s}
-        for s in smoke.build_sources()})
+        s: {"seconds": 0.0, "log": "", "path": s} for s in sources})
     monkeypatch.setattr(smoke.attention, "load_library",
                         lambda dtype, route: loaded.append((route, dtype)))
+    monkeypatch.setattr(smoke.native, "get_lib",
+                        lambda: loaded.append("codec"))
     smoke.build_phase()
-    assert built == [smoke.build_sources()]
-    assert sorted(loaded, key=str) == sorted(
+    assert built == [sources]
+    assert loaded[-1] == "codec"
+    assert sorted(loaded[:-1], key=str) == sorted(
         [(r, d) for r in ("tuned", "general")
          for d in (torch.float32, torch.bfloat16)], key=str)
+
+
+def test_codec_check_holds_the_codec_to_its_plain_versions(smoke, tmp_path,
+                                                          monkeypatch):
+    """The codec phase (6b) on a few files: codec_inputs keeps every
+    MOTION text that bvh.load hands the codec and every block that
+    bvh.save hands it, and codec_check holds each to the plain versions
+    (and the probe text to glibc's values); a codec that writes other text
+    fails it."""
+    native.get_lib()
+    parse, fmt = native.parse_floats, native.format_frames
+    with smoke.codec_inputs() as (texts, blocks):
+        for i, T in enumerate((30, 41)):
+            path = str(tmp_path / f"clip_{i}.bvh")
+            bvh.save(path, make_mocha_bvh_data(T=T, seed=i))
+            bvh.load(path)
+            bvh.load(path)
+    assert (native.parse_floats, native.format_frames) == (parse, fmt)
+    assert len(texts) == 4
+    assert [b.shape[0] for b in blocks] == [30, 41]
+    result = smoke.codec_check(texts, blocks)
+    assert (result["motion_texts"], result["motion_texts_handed"]) == (2, 4)
+    assert result["values_parsed"] == sum(b.size for b in blocks)
+    assert result["probe_values"] == len(smoke.CODEC_PROBE_VALUES) == 40
+    assert result["parse_bit_identical"] and result["format_byte_identical"]
+    monkeypatch.setattr(native, "format_frames",
+                        lambda values: native.format_frames_plain(values)
+                        .replace("-nan", "nan"))
+    with pytest.raises(RuntimeError, match="probe block"):
+        smoke.codec_check(texts, blocks)
 
 
 def test_expected_counts_of_the_shipped_and_wide_configs(smoke):

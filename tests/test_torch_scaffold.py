@@ -47,7 +47,8 @@ def test_import_loads_no_jax():
               "train.trainer", "train.losses", "train.checkpoint",
               "kinematics.xform", "models.projector", "utils.logging",
               "train.trainer_cvae", "cli.train_cvae", "io.msgpack",
-              "cli.convert_checkpoint", "io.zstd", "io.ocdbt", "io.orbax"):
+              "cli.convert_checkpoint", "io.zstd", "io.ocdbt", "io.orbax",
+              "io.native"):
         assert "mocha_sigasia2023_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
@@ -82,13 +83,14 @@ def test_sources_import_no_jax():
     for sub in ("cli", "io", "utils"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
     for name in ("live.py", "matching.py", "generate_database.py",
-                 "collect_features.py", "database.py"):
+                 "collect_features.py", "database.py", "native.py"):
         assert any(f.endswith(os.sep + name) for f in files), name
     # chip_smoke.py drives the general kernel and the dataset path too
     smoke = open(files[0]).read()
     for phase in ('"kernels (general)", general_phase',
                   '"dataset", dataset_phase', '"train", train_phase',
-                  '"cvae", cvae_phase', '"orbax", orbax_phase'):
+                  '"cvae", cvae_phase', '"orbax", orbax_phase',
+                  '"codec", codec_check'):
         assert phase in smoke, phase
     for path in files:
         for name in _imported_names(path):
