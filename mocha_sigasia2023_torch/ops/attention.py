@@ -35,6 +35,7 @@ from dataclasses import astuple, dataclass
 
 import torch
 
+from ..utils.profiling import recording, span
 from . import build
 
 SOURCE = "attention.cu"
@@ -54,6 +55,7 @@ GENERAL = {
                      "launches_general"),
 }
 ROUTES = {"tuned": KERNELS, "general": GENERAL}
+DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 MAX_KEYS = 128
 HEAD_DIM_MULTIPLE = 64
 # the kernels' TMA copies need 16-byte-aligned starts and strides
@@ -272,11 +274,28 @@ def fused_attention(q, k, v, *, scale: float):
             "(models.layers.attention(..., train=True)) or run under "
             "torch.no_grad()")
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, scale)
+        with _span(q, k, "plain"):
+            return attention_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     _check(q, k, v)
     route = _route(q, k, v)
+    with _span(q, k, route):
+        return _launch(q, k, v, scale, route)
+
+
+def _span(q, k, route):
+    """The call's ``ops.attention`` span, with B, H, N, M, d, the dtype's
+    name and the route ("tuned", "general", or "plain" on the CPU) as its
+    attributes, worked out only while spans record."""
+    if not recording():
+        return span("ops.attention")
+    b, h, n, d = q.shape
+    return span("ops.attention", B=b, H=h, N=n, M=k.shape[2], d=d,
+                dtype=DTYPE_NAMES.get(q.dtype, str(q.dtype)), route=route)
+
+
+def _launch(q, k, v, scale, route):
     fn = load_library(q.dtype, route)
     b, h, n, d = q.shape
     m = k.shape[2]

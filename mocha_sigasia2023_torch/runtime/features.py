@@ -28,6 +28,7 @@ from ..data.windows import padded_window_indices
 from ..device import check_module_device, resolve_device
 from ..kinematics import quat
 from ..models import generator as gen_mod
+from ..utils.profiling import span
 
 
 @torch.no_grad()
@@ -106,6 +107,13 @@ def _stream_chunk_outputs(pf, ci, cp, bone_parents, gen, X_mean, X_std,
     per-frame arrays, ``cp`` their pad mask) -> encoder features + the
     window-last stream rows.  ``compute_dtype`` casts the encoder input;
     encoded and cnt come back float32."""
+    with span("features.encode", windows=len(ci)):
+        return _chunk_outputs(pf, ci, cp, bone_parents, gen, X_mean, X_std,
+                              emit_cnt, compute_dtype)
+
+
+def _chunk_outputs(pf, ci, cp, bone_parents, gen, X_mean, X_std, emit_cnt,
+                   compute_dtype):
     is_root, is_rchild = _root_masks(
         tuple(int(p) for p in np.asarray(bone_parents)), ci.device)
 
@@ -164,16 +172,18 @@ def _clip_windows(clips: Sequence[Dict], gen, norm, window, chunk, emit_cnt,
     """Featurize + encode same-length, same-skeleton clips -> per-window
     features with leading (S, n_windows)."""
     c0 = clips[0]
-    rot = torch.as_tensor(np.stack([np.asarray(c["rotations"], np.float32)
-                                    for c in clips]), device=dev)
-    pos = torch.as_tensor(np.stack([np.asarray(c["positions"], np.float32)
-                                    for c in clips]), device=dev)
-    S, T = rot.shape[:2]
-    feats = featurize_clip(rot, pos, c0["order"], c0["names"], c0["parents"],
-                           contact_velocity_threshold=0.5, fps=60.0)
-    bone_parents = feats["bone_parents"]
-    pf = _per_frame_world({k: feats[k] for k in ARRAY_KEYS}, bone_parents)
-    pf = {k: v.reshape((S * T,) + v.shape[2:]) for k, v in pf.items()}
+    with span("features.featurize"):
+        rot = torch.as_tensor(np.stack([np.asarray(c["rotations"], np.float32)
+                                        for c in clips]), device=dev)
+        pos = torch.as_tensor(np.stack([np.asarray(c["positions"], np.float32)
+                                        for c in clips]), device=dev)
+        S, T = rot.shape[:2]
+        feats = featurize_clip(rot, pos, c0["order"], c0["names"],
+                               c0["parents"], contact_velocity_threshold=0.5,
+                               fps=60.0)
+        bone_parents = feats["bone_parents"]
+        pf = _per_frame_world({k: feats[k] for k in ARRAY_KEYS}, bone_parents)
+        pf = {k: v.reshape((S * T,) + v.shape[2:]) for k, v in pf.items()}
 
     idx, pad = padded_window_indices(T, window, 1)
     n_w = len(idx)
@@ -205,11 +215,14 @@ def batch_stream_features_device(clips: Sequence[Dict], gen, norm, *,
     dtype); the features come back float32."""
     dev = resolve_device(device)
     check_module_device(gen, dev, "generator")
-    out = _clip_windows(clips, gen, norm, window, chunk, emit_cnt,
-                        compute_dtype, dev)
-    frame0 = {k: v[:, 0] for k, v in out.items()}
-    xs = {k: v[:, 1:].transpose(0, 1).contiguous() for k, v in out.items()}
-    return frame0, xs
+    with span("features", streams=len(clips),
+              frames=len(clips[0]["rotations"])):
+        out = _clip_windows(clips, gen, norm, window, chunk, emit_cnt,
+                            compute_dtype, dev)
+        frame0 = {k: v[:, 0] for k, v in out.items()}
+        xs = {k: v[:, 1:].transpose(0, 1).contiguous()
+              for k, v in out.items()}
+        return frame0, xs
 
 
 @torch.no_grad()

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..device import check_module_device, resolve_device
+from ..utils.profiling import span
 from . import stream as rts
 from .matching import nn_index
 from .stream import IKConfig, RuntimeConsts
@@ -114,15 +115,21 @@ class LiveCharacterizer:
         return x
 
     def _match(self, x):
-        q = (x["cnt"] - self._sc.cnt_mean) / self._sc.cnt_std
-        return nn_index(q.reshape(1, -1), self._consts.cha_cnt_flat,
-                        self._consts.cha_cnt_sq)
+        with span("live.match"):
+            q = (x["cnt"] - self._sc.cnt_mean) / self._sc.cnt_std
+            return nn_index(q.reshape(1, -1), self._consts.cha_cnt_flat,
+                            self._consts.cha_cnt_sq)
 
     @torch.no_grad()
     def _dispatch(self, frame: Dict):
         """Queue one frame: upload, step, download.  Returns (host output
         buffer, event recorded after its copy, or None on the CPU)."""
+        with span("live.dispatch"):
+            return self._dispatch_frame(frame)
+
+    def _dispatch_frame(self, frame: Dict):
         b = self._frames % 2
+        t = self._frames
         self._frames += 1
         np.concatenate([np.asarray(frame[k], np.float32).reshape(-1)
                         for k in self.FEAT_KEYS], out=self._h_in[b].numpy())
@@ -135,8 +142,9 @@ class LiveCharacterizer:
                 contact_bones=self._contact_bones, dt=self._dt,
                 root_dtype=self._root_dtype)
         else:
-            self._carry, out = self._step(self._sc, self._carry, x,
-                                          self._generator)
+            with span("stream.step", t=t):
+                self._carry, out = self._step(self._sc, self._carry, x,
+                                              self._generator)
         flat = torch.cat([out[k].to(torch.float32).reshape(-1)
                           for k in self.OUT_KEYS])
         self._h_out[b].copy_(flat, non_blocking=True)
@@ -148,8 +156,9 @@ class LiveCharacterizer:
 
     def _unpack(self, pending) -> Dict[str, np.ndarray]:
         buf, event = pending
-        if event is not None:
-            event.synchronize()
+        with span("live.wait"):
+            if event is not None:
+                event.synchronize()
         flat = buf.numpy()
         out, o = {}, 0
         for k in self.OUT_KEYS:
@@ -168,7 +177,8 @@ class LiveCharacterizer:
                 "a pipelined frame is still in flight: call flush() before "
                 "switching from push_frame_pipelined to push_frame (its pose "
                 "would otherwise be dropped)")
-        return self._unpack(self._dispatch(frame))
+        with span("live.push", request=self._frames):
+            return self._unpack(self._dispatch(frame))
 
     def push_frame_pipelined(self, frame: Dict
                              ) -> Optional[Dict[str, np.ndarray]]:
@@ -176,8 +186,9 @@ class LiveCharacterizer:
         pose (None on the first call; :meth:`flush` drains the tail).  The
         device runs frame i while the host reads frame i-1's output; the
         output lags its input by one frame."""
-        prev, self._pending = self._pending, self._dispatch(frame)
-        return None if prev is None else self._unpack(prev)
+        with span("live.push", request=self._frames):
+            prev, self._pending = self._pending, self._dispatch(frame)
+            return None if prev is None else self._unpack(prev)
 
     def flush(self) -> Optional[Dict[str, np.ndarray]]:
         """The last pipelined frame's pose, if one is in flight."""

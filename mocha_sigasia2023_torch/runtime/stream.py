@@ -25,6 +25,7 @@ process-wide flag is involved); decode, FK and IK stay float32.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -37,6 +38,7 @@ from ..models import cvae as cvae_mod
 from ..models import generator as gen_mod
 from ..models.layers import batch_shard
 from ..parallel.mesh import all_gather_rows, data_coordinate
+from ..utils.profiling import span
 from .matching import nn_index, nn_index_grouped
 
 
@@ -344,11 +346,14 @@ def make_stream_step(gen, cvae, parents, *, contact_bones=(5, 24),
         cvae_dtype = compute_dtype
 
     def decode(consts, src_enc, *chas):
-        if fuse_decodes or len(chas) == 1:
-            return _decode_frames(gen, consts, src_enc, torch.stack(chas),
-                                  compute_dtype, lean_decode)
-        return [_decode_frames(gen, consts, src_enc, c[None], compute_dtype,
-                               lean_decode)[0] for c in chas]
+        with span("stream.decode", decodes=len(chas)):
+            if fuse_decodes or len(chas) == 1:
+                return _decode_frames(gen, consts, src_enc,
+                                      torch.stack(chas), compute_dtype,
+                                      lean_decode)
+            return [_decode_frames(gen, consts, src_enc, c[None],
+                                   compute_dtype, lean_decode)[0]
+                    for c in chas]
 
     def step(consts: RuntimeConsts, carry: StreamCarry, x: Dict,
              generator=None):
@@ -357,19 +362,20 @@ def make_stream_step(gen, cvae, parents, *, contact_bones=(5, 24),
         nn_cha_encoded = consts.cha_encoded[idx].float()
 
         if use_cvae:
-            cnt = (x["cnt"] if "cnt" in x
-                   else gen_mod.content_feature(x["encoded"]))
-            condition = torch.cat(
-                [(cnt - consts.src_cnt_mean) / consts.src_cnt_std,
-                 (carry.prev_cha_encoded - consts.cha_encoded_mean)
-                 / consts.cha_encoded_std], dim=1)
-            if cvae_dtype is not None:
-                condition = condition.to(cvae_dtype)
-            vae_out = cvae_mod.sample(cvae, condition,
-                                      deterministic=deterministic,
-                                      generator=generator).float()
-            cvae_cha_encoded = (vae_out * consts.cha_encoded_std
-                                + consts.cha_encoded_mean)
+            with span("stream.cvae"):
+                cnt = (x["cnt"] if "cnt" in x
+                       else gen_mod.content_feature(x["encoded"]))
+                condition = torch.cat(
+                    [(cnt - consts.src_cnt_mean) / consts.src_cnt_std,
+                     (carry.prev_cha_encoded - consts.cha_encoded_mean)
+                     / consts.cha_encoded_std], dim=1)
+                if cvae_dtype is not None:
+                    condition = condition.to(cvae_dtype)
+                vae_out = cvae_mod.sample(cvae, condition,
+                                          deterministic=deterministic,
+                                          generator=generator).float()
+                cvae_cha_encoded = (vae_out * consts.cha_encoded_std
+                                    + consts.cha_encoded_mean)
         else:
             cvae_cha_encoded = nn_cha_encoded
 
@@ -383,44 +389,47 @@ def make_stream_step(gen, cvae, parents, *, contact_bones=(5, 24),
             c_pos, c_rot, c_vel, c_ang, c_speed = (
                 t_pos, t_rot, t_vel, t_ang, t_speed)
 
-        # source root integration
-        s_rootpos, s_rootrot, s_rootvel, s_rootang = _integrate_root(
-            carry.src_pos0, carry.src_rot0, x["rvel_last"], x["rang_last"],
-            dt)
-        src_pos = _set_root(x["pos_last"], s_rootpos)
-        src_rot = _set_root(x["rot_last"], s_rootrot)
-        src_vel = _set_root(x["vel_last"], s_rootvel)
-        src_ang = _set_root(x["ang_last"], s_rootang)
+        with span("stream.roots"):
+            # source root integration
+            s_rootpos, s_rootrot, s_rootvel, s_rootang = _integrate_root(
+                carry.src_pos0, carry.src_rot0, x["rvel_last"],
+                x["rang_last"], dt)
+            src_pos = _set_root(x["pos_last"], s_rootpos)
+            src_rot = _set_root(x["rot_last"], s_rootrot)
+            src_vel = _set_root(x["vel_last"], s_rootvel)
+            src_ang = _set_root(x["ang_last"], s_rootang)
 
-        # CVAE/trans stream root integration
-        t_ratio = _guarded_ratio(t_speed, x["hips_speed_mean"])
-        t_rootpos, t_rootrot, t_rootvel, t_rootang = _integrate_root(
-            carry.trans_pos0, carry.trans_rot0,
-            x["rvel_last"] * t_ratio[:, None], x["rang_last"], dt)
-        trans_pos, trans_rot, trans_vel, _ = _assemble(
-            t_rootpos, t_rootrot, t_rootvel, t_rootang,
-            t_pos, t_rot, t_vel, t_ang)
+            # CVAE/trans stream root integration
+            t_ratio = _guarded_ratio(t_speed, x["hips_speed_mean"])
+            t_rootpos, t_rootrot, t_rootvel, t_rootang = _integrate_root(
+                carry.trans_pos0, carry.trans_rot0,
+                x["rvel_last"] * t_ratio[:, None], x["rang_last"], dt)
+            trans_pos, trans_rot, trans_vel, _ = _assemble(
+                t_rootpos, t_rootrot, t_rootvel, t_rootang,
+                t_pos, t_rot, t_vel, t_ang)
 
-        # NN/cm stream root integration
-        c_ratio = _guarded_ratio(c_speed, x["hips_speed_mean"])
-        c_rootpos, c_rootrot, c_rootvel, c_rootang = _integrate_root(
-            carry.cm_pos0, carry.cm_rot0,
-            x["rvel_last"] * c_ratio[:, None], x["rang_last"], dt)
-        cm_pos, cm_rot, _, _ = _assemble(
-            c_rootpos, c_rootrot, c_rootvel, c_rootang,
-            c_pos, c_rot, c_vel, c_ang)
+            # NN/cm stream root integration
+            c_ratio = _guarded_ratio(c_speed, x["hips_speed_mean"])
+            c_rootpos, c_rootrot, c_rootvel, c_rootang = _integrate_root(
+                carry.cm_pos0, carry.cm_rot0,
+                x["rvel_last"] * c_ratio[:, None], x["rang_last"], dt)
+            cm_pos, cm_rot, _, _ = _assemble(
+                c_rootpos, c_rootrot, c_rootvel, c_rootang,
+                c_pos, c_rot, c_vel, c_ang)
 
-        # contact fixup with foot locking + IK on the blended pose
-        ik_blend = 0.5 * (carry.ik_prev_pos + trans_vel * dt) + 0.5 * trans_pos
-        if ik.enabled:
-            new_cs, adjusted_rot = _ik_fixup(
-                parents, contact_bones, ik, dt, carry.contacts, ik_blend,
-                trans_rot, x["contact_last"] > 0.5)
-        else:
-            new_cs, adjusted_rot = carry.contacts, trans_rot
+        with span("stream.ik"):
+            # contact fixup with foot locking + IK on the blended pose
+            ik_blend = (0.5 * (carry.ik_prev_pos + trans_vel * dt)
+                        + 0.5 * trans_pos)
+            if ik.enabled:
+                new_cs, adjusted_rot = _ik_fixup(
+                    parents, contact_bones, ik, dt, carry.contacts, ik_blend,
+                    trans_rot, x["contact_last"] > 0.5)
+            else:
+                new_cs, adjusted_rot = carry.contacts, trans_rot
 
-        trans_blended = (0.5 * (carry.trans_prev_pos + trans_vel * dt)
-                         + 0.5 * trans_pos)
+            trans_blended = (0.5 * (carry.trans_prev_pos + trans_vel * dt)
+                             + 0.5 * trans_pos)
         new_carry = StreamCarry(
             src_pos0=s_rootpos, src_rot0=s_rootrot,
             trans_pos0=t_rootpos, trans_prev_pos=trans_blended,
@@ -451,6 +460,13 @@ def init_stream(gen, consts: RuntimeConsts, parents, frame0: Dict, *,
     decodes its float32 inputs against the bf16 weights instead, promoting
     in places; the port keeps the whole bf16 session in bf16).  Returns
     (carry, frame-0 outputs)."""
+    with span("stream.init"):
+        return _init_stream(gen, consts, parents, frame0, contact_bones, dt,
+                            root_dtype, compute_dtype, lean_decode)
+
+
+def _init_stream(gen, consts, parents, frame0, contact_bones, dt,
+                 root_dtype, compute_dtype, lean_decode):
     idx = frame0["nn_idx"]
     cha_enc = consts.cha_encoded[idx].float()
     (t_pos, t_rot, t_vel, t_ang, t_speed), = _decode_frames(
@@ -582,13 +598,14 @@ def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
         """(T, S, ...) stream inputs -> (T, S) matches, in time chunks so
         the (T, S, tok, dim) normalized query never materializes whole."""
         src = f["cnt"] if "cnt" in f else f["encoded"]
-        out = []
-        for s in range(0, src.shape[0], MATCH_TCHUNK):
-            chunk = src[s:s + MATCH_TCHUNK]
-            out.append(match(sc, chunk if "cnt" in f
-                             else gen_mod.content_feature(chunk),
-                             cid, group_size))
-        return torch.cat(out)
+        with span("stream.match", frames=src.shape[0], streams=src.shape[1]):
+            out = []
+            for s in range(0, src.shape[0], MATCH_TCHUNK):
+                chunk = src[s:s + MATCH_TCHUNK]
+                out.append(match(sc, chunk if "cnt" in f
+                                 else gen_mod.content_feature(chunk),
+                                 cid, group_size))
+            return torch.cat(out)
 
     def check_generator(generator):
         if cvae is not None and not deterministic and generator is None:
@@ -639,24 +656,32 @@ def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
         for t in range(idx_xs.shape[0]):
             x = {k: v[t] for k, v in xs.items()}
             x["nn_idx"] = idx_xs[t]
-            carry, o = step(sc, carry, x, generator)
+            with span("stream.step", t=len(outs)):
+                carry, o = step(sc, carry, x, generator)
             outs.append(o)
         return carry
 
     def finish(session, outs):
-        out = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
-        cid = session[1]
-        if cid is not None:   # character-local, as a dedicated runner's
-            out["nn_index"] = out["nn_index"] - cid * M
-        return out
+        with span("stream.finish"):
+            out = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+            cid = session[1]
+            if cid is not None:   # character-local, as a dedicated runner's
+                out["nn_index"] = out["nn_index"] - cid * M
+            return out
+
+    batches = itertools.count()   # the request id of each call's spans
 
     @torch.no_grad()
     def runner(frame0: Dict, xs: Dict,
                generator: Optional[torch.Generator] = None,
                char_ids=None) -> Dict[str, torch.Tensor]:
-        session, carry, outs = start(frame0, generator, char_ids)
-        scan(session, carry, xs, generator, outs)
-        return finish(session, outs)
+        S = len(frame0["encoded"])
+        T = 1 + len(xs["encoded"])
+        with span("stream.runner", request=next(batches), streams=S,
+                  frames=T):
+            session, carry, outs = start(frame0, generator, char_ids)
+            scan(session, carry, xs, generator, outs)
+            return finish(session, outs)
 
     def upload(a):
         """Host array or tensor -> float32 on the device; CUDA copies go
@@ -673,13 +698,16 @@ def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
         if tchunk < 1:
             raise ValueError(f"chunked: tchunk must be >= 1, got {tchunk}")
         T = len(next(iter(xs.values())))
-        session, carry, outs = start(
-            {k: upload(v) for k, v in frame0.items()}, generator, char_ids)
-        for s in range(0, T, tchunk):
-            carry = scan(session, carry, {k: upload(v[s:s + tchunk])
-                                          for k, v in xs.items()},
-                         generator, outs)
-        return finish(session, outs)
+        with span("stream.runner", request=next(batches),
+                  streams=len(frame0["encoded"]), frames=1 + T):
+            session, carry, outs = start(
+                {k: upload(v) for k, v in frame0.items()}, generator,
+                char_ids)
+            for s in range(0, T, tchunk):
+                carry = scan(session, carry, {k: upload(v[s:s + tchunk])
+                                              for k, v in xs.items()},
+                             generator, outs)
+            return finish(session, outs)
 
     runner.chunked = chunked
     return runner

@@ -82,6 +82,32 @@ def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
     assert any(e.key == "aten::mm" for e in prof.key_averages())
 
 
+def test_device_trace_writes_the_blocks_spans_on_its_timeline(tmp_path):
+    tprof.clear()
+    with tprof.span("before the block"):
+        pass
+    with tprof.device_trace(str(tmp_path / "trace")):
+        with tprof.span("outer", request=3, rows=64):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+            with tprof.span("inner"):
+                torch.ones(8) + 1
+    tprof.clear()
+    path = tmp_path / "trace" / os.listdir(tmp_path / "trace")[0]
+    events = json.load(open(path))["traceEvents"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "port_span"}
+    assert set(spans) == {"outer", "inner"}
+    outer, inner = spans["outer"], spans["inner"]
+    assert outer["args"]["request"] == inner["args"]["request"] == 3
+    assert outer["args"]["rows"] == 64
+    assert inner["args"]["parent"] == outer["args"]["id"]
+    # on the trace's own timeline: the product inside the outer span
+    mm, = [e for e in events if e.get("name") == "aten::mm"]
+    assert outer["ts"] <= mm["ts"]
+    assert mm["ts"] + mm["dur"] <= outer["ts"] + outer["dur"]
+    assert outer["ts"] <= inner["ts"]
+    assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+
+
 def _frame0(ani):
     ani._init_draw()
     ani._draw_frame(0)
