@@ -185,6 +185,16 @@ Phases (any failure exits non-zero; each prints its wall time):
      path implies.
   The general kernel's counter stays at 0 through phases 4-14: the
   shipped config never leaves the tuned kernels.
+  3c. kernels (pose): the frame step's two pose kernels (pose.cu) at S =
+     64 and 256 streams with float64 and float32 roots, each wrapper held
+     to the eager pose math over 24 steps (each route its own state;
+     within 1e-6 of the eager route's scale, the IK's rotations within
+     2e-6 m mean through the world positions they give), timed (device
+     and host a call) beside a bound from the bytes it touches and the
+     eager chain it replaces (wall time to a synchronize: host-bound).
+  Every serving phase (4-14) runs each pose kernel exactly once a stream
+  step on the card, and no step there takes the eager pose math
+  (pose.eager_steps stays at 0; the parallel phase's ranks count theirs).
 
 The line before the last is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -230,6 +240,7 @@ from mocha_sigasia2023_torch.data.windows import (  # noqa: E402
     full_window_indices, padded_window_indices, window_features)
 from mocha_sigasia2023_torch.io import bvh, native  # noqa: E402
 from mocha_sigasia2023_torch.io.msgpack import read_msgpack  # noqa: E402
+from mocha_sigasia2023_torch.kinematics import quat  # noqa: E402
 from mocha_sigasia2023_torch.models import convert  # noqa: E402
 from mocha_sigasia2023_torch.models import cvae as cvae_mod  # noqa: E402
 from mocha_sigasia2023_torch.models.cvae import CVAEConfig, init_cvae  # noqa: E402
@@ -238,11 +249,12 @@ from mocha_sigasia2023_torch.models.generator import (  # noqa: E402
     GeneratorConfig, content_feature, init_generator)
 from mocha_sigasia2023_torch.models.projector import (  # noqa: E402
     init_projector)
-from mocha_sigasia2023_torch.ops import attention, build  # noqa: E402
+from mocha_sigasia2023_torch.ops import attention, build, pose  # noqa: E402
 from mocha_sigasia2023_torch.parallel import distributed  # noqa: E402
 from mocha_sigasia2023_torch.parallel.mesh import (  # noqa: E402
     make_mesh, shard_batch)
-from mocha_sigasia2023_torch.runtime import export  # noqa: E402
+from mocha_sigasia2023_torch.runtime import export, pose_frames  # noqa: E402
+from mocha_sigasia2023_torch.runtime import stream  # noqa: E402
 from mocha_sigasia2023_torch.runtime import features as rtf  # noqa: E402
 from mocha_sigasia2023_torch.runtime.live import (  # noqa: E402
     LiveCharacterizer)
@@ -267,6 +279,26 @@ if os.environ.get(DETERMINISTIC_FLAG) in ("1", "warn"):
         True, warn_only=os.environ[DETERMINISTIC_FLAG] == "warn")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+# stream steps run on a card in this process (the ranks that import this
+# file count theirs): every stream step the port makes is counted here,
+# so that each phase can hold the pose kernels' launches to its steps
+STEPS_RUN = [0]
+
+
+def _counting_steps(make):
+    def make_step(*args, **kw):
+        step = make(*args, **kw)
+
+        def counted(consts, carry, x, generator=None):
+            if carry.src_pos0.is_cuda:
+                STEPS_RUN[0] += 1
+            return step(consts, carry, x, generator)
+        return counted
+    return make_step
+
+
+stream.make_stream_step = _counting_steps(stream.make_stream_step)
 
 # H100 SXM data sheet: HBM bandwidth, dense TF32 and bf16 tensor-core rates,
 # and the fp32 rate outside the tensor cores
@@ -3201,8 +3233,10 @@ def sharded_serving(spec, dev, mesh):
 
     drive()
     reset_launches()
+    pose_reset()
     out, feat_s, run_s, e2e_s = drive()
     result = {"streams": len(mine), "launches": all_launches(),
+              "pose": pose_counts(),
               "featurize_s": feat_s, "runner_s": run_s, "e2e_s": e2e_s,
               "step_loop_frames_per_s": len(mine) * spec["frames"] / run_s}
     if distributed.is_primary_host():
@@ -3541,9 +3575,11 @@ def parallel_phase(cfg, cvae_cfg, dev, root, *, streams=STREAMS,
             "launches": want, "launches_bf16": 0, "launches_general": 0},
             f"parallel serving rank {r['rank']}: launches {s['launches']},"
             f" want exactly {want} float32 launches")
+        check_pose_launches(dev, f"parallel serving rank {r['rank']}",
+                            s["pose"], steps=frames - 1)
         serving.append({k: s[k] for k in (
-            "streams", "launches", "featurize_s", "runner_s", "e2e_s",
-            "step_loop_frames_per_s")})
+            "streams", "launches", "pose", "featurize_s", "runner_s",
+            "e2e_s", "step_loop_frames_per_s")})
     e2e = streams * frames / max(s["e2e_s"] for s in serving)
     log(f"[parallel] sharded serving, {streams} streams x {frames} frames "
         f"on {PARALLEL_RANKS} ranks: picks identical, max abs error per "
@@ -3707,6 +3743,7 @@ def parallel_phase(cfg, cvae_cfg, dev, root, *, streams=STREAMS,
         "serving_step_loop_frames_per_s": [
             s["step_loop_frames_per_s"] for s in serving],
         "serving_e2e_frames_per_s": e2e, "serving_errors": serve_errs,
+        "pose_launches_ranks": [s["pose"]["pose_roots"] for s in serving],
         "first_step_gradient_worst": list(grad_worst),
         "first_step_loss_gaps": loss_gaps,
         "train_steps": steps, "train_batch": batch,
@@ -3855,16 +3892,203 @@ def orbax_phase(cfg, cvae_cfg, dev, root, *, streams=ORBAX_STREAMS,
     return result, counts["orbax"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# the pose kernels: the frame step's pose math, two launches a step
+# ---------------------------------------------------------------------------
+
+# stream counts of the main path (the slice and the CVAE cell: 64; the
+# 30-style cell: 256), each with the offline float64 roots and the live
+# float32 ones
+POSE_CASES = [(64, torch.float64), (64, torch.float32),
+              (256, torch.float64), (256, torch.float32)]
+POSE_SHAPE = "S=64 float64"          # the kernels line's shape
+POSE_STEPS = 24
+# tests/test_torch_pose_kernels.py's limits: relative to the eager route's
+# scale, and the IK's rotations through the world positions they give
+POSE_RTOL, POSE_WORLD_M = 1e-6, 2e-6
+DESIGN_POSE = ("a warp a stream, four streams a block; pose_roots: lanes "
+               "0-2 integrate the source, CVAE and NN roots in the carry's "
+               "dtype, then every lane copies the joint rows with the root "
+               "row cast to float32; pose_ik: every lane blends its "
+               "elements, lanes 0 and 1 take a leg each (FK down the chain, "
+               "the contact spring, the two-bone solve); every operation "
+               "rounded as the eager PyTorch operation rounds it (__f*_rn / "
+               "__d*_rn, no FMA)")
+
+
+def wall_ms(fn, calls):
+    """Wall time of one call to a synchronize, in ms: the eager pose chain
+    is host-bound, and its 300-1,000 launches a call fill the launch queue
+    behind time_ms's spinning kernel."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def pose_counts():
+    """Stream steps run on the card, the pose kernels' launches and the
+    card's eager pose steps since :func:`pose_reset`."""
+    return {"steps": STEPS_RUN[0], "pose_roots": pose.pose_roots.launches,
+            "pose_ik": pose.pose_ik.launches, "eager": pose.eager_steps}
+
+
+def pose_reset():
+    STEPS_RUN[0] = 0
+    pose.pose_roots.launches = pose.pose_ik.launches = 0
+    pose.eager_steps = 0
+
+
+def check_pose_launches(dev, name, counts, steps=None):
+    """Each pose kernel launched once a stream step on the card, no step
+    took the eager pose math there, and (``steps``) the steps the phase
+    implies."""
+    want = counts["steps"] if steps is None else steps
+    check_launches(dev, counts["pose_roots"] == counts["pose_ik"] == want
+                   == counts["steps"] and counts["eager"] == 0,
+                   f"{name}: pose kernels {counts}; want one launch of each "
+                   f"a step ({want} steps) and no eager step on the card")
+
+
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def pose_case(dev, S, root_dtype):
+    """Both wrappers against the eager route over POSE_STEPS steps, then
+    timed on the last step's inputs; returns a row for each wrapper."""
+    ik = stream.IKConfig()
+    p = pose_frames.make_plan(ik)
+    f = pose_frames.Frames(S, 500 + S, dev)
+    carry = dict.fromkeys(("kernel", "eager"), f.carry(root_dtype))
+    err = {"pose_roots": [0.0, 0.0], "pose_ik": [0.0, 0.0]}  # abs, rel
+    world = 0.0
+    roots_keys = ("src_pos", "src_rot", "src_vel", "src_ang", "trans_rot",
+                  "cm_pos", "cm_rot")
+
+    def note(kernel, a, b):
+        a, b = a.double(), b.double()
+        d = float((a - b).abs().max())
+        err[kernel][0] = max(err[kernel][0], d)
+        err[kernel][1] = max(err[kernel][1],
+                             d / max(1.0, float(b.abs().max())))
+
+    with torch.no_grad():
+        for _ in range(POSE_STEPS):
+            x, t, c = f.x(), f.decoded(), f.decoded()
+            out = {}
+            for route in carry:
+                carry[route], out[route] = pose_frames.pose_step(
+                    route, p, ik, carry[route], x, t, c)
+            k, e = out["kernel"], out["eager"]
+            kc, ec = carry["kernel"], carry["eager"]
+            for name in roots_keys:
+                note("pose_roots", k[name], e[name])
+            for name in ("src_pos0", "src_rot0", "trans_pos0", "trans_rot0",
+                         "cm_pos0", "cm_rot0"):
+                note("pose_roots", getattr(kc, name), getattr(ec, name))
+            for name in ("trans_pos", "ik_pos"):
+                note("pose_ik", k[name], e[name])
+            for a, b in zip(kc.contacts, ec.contacts):
+                if a.dtype == torch.bool:
+                    check(torch.equal(a, b), f"pose_ik S={S} {root_dtype}: "
+                          "contact flags differ from the eager route's")
+                else:
+                    note("pose_ik", a, b)
+            wk = quat.fk(k["ik_rot"].double(), k["ik_pos"].double(),
+                         pose_frames.PARENTS)[1]
+            we = quat.fk(e["ik_rot"].double(), e["ik_pos"].double(),
+                         pose_frames.PARENTS)[1]
+            world = max(world, float((wk - we).abs().mean()))
+        kc, ec = carry["kernel"], carry["eager"]
+        r, o = stream._roots_kernel(p, kc, x, t, c)
+        roots_in = (kc.src_pos0, kc.src_rot0, kc.trans_pos0, kc.trans_rot0,
+                    kc.cm_pos0, kc.cm_rot0, *x.values(), t[0], t[1], t[2],
+                    t[4], c[0], c[1], c[4])
+        ik_in = (kc.ik_prev_pos, kc.trans_prev_pos, r.trans_pos, r.trans_vel,
+                 r.trans_rot, x["contact_last"], *kc.contacts)
+        moved = {"pose_roots": nbytes(roots_in) - nbytes([x["contact_last"]])
+                 + nbytes(o.roots),
+                 "pose_ik": nbytes(ik_in) + nbytes(o.ik)}
+        re = stream._roots_eager(ec, x, t, c, pose_frames.DT)
+        timed = {
+            "pose_roots": (
+                lambda: stream._roots_kernel(p, kc, x, t, c),
+                lambda: stream._roots_eager(ec, x, t, c, pose_frames.DT)),
+            "pose_ik": (
+                lambda: stream._ik_kernel(p, kc, x, r, o),
+                lambda: stream._ik_eager(
+                    pose_frames.PARENTS, pose_frames.CONTACT_BONES, ik,
+                    pose_frames.DT, ec, x, re))}
+        _, step_host = time_ms(lambda: pose_frames.pose_step(
+            "kernel", p, ik, kc, x, t, c))
+        eager_step_ms = wall_ms(lambda: pose_frames.pose_step(
+            "eager", p, ik, ec, x, t, c), calls=5)
+    for kernel in err:
+        check(err[kernel][1] <= POSE_RTOL,
+              f"{kernel} S={S} {root_dtype}: {err[kernel][1]:.3e} from the "
+              f"eager route, over {POSE_RTOL}")
+    check(world <= POSE_WORLD_M,
+          f"pose_ik S={S} {root_dtype}: the IK's world positions "
+          f"{world:.3e} m from the eager route's, over {POSE_WORLD_M}")
+    rows = {}
+    dtype = str(root_dtype).replace("torch.", "")
+    with torch.no_grad():
+        for kernel, (fn, eager_fn) in timed.items():
+            ms, host_ms = time_ms(fn)
+            plain_ms = wall_ms(eager_fn, calls=5)
+            bound_ms = moved[kernel] / PEAK_BYTES_PER_S * 1e3
+            rows[kernel] = {
+                "shape": f"S={S} {dtype}", "streams": S, "root_dtype": dtype,
+                "steps_checked": POSE_STEPS, "max_abs_err": err[kernel][0],
+                "max_rel_err": err[kernel][1], "ms": ms, "host_ms": host_ms,
+                "plain_ms": plain_ms, "plain_timed_by": "wall",
+                "library_ms": None, "bytes": moved[kernel],
+                "bound_ms": bound_ms, "bound_by": "bytes",
+                "roofline_share": bound_ms / ms,
+                "step_host_ms": step_host, "eager_step_ms": eager_step_ms}
+            if kernel == "pose_ik":
+                rows[kernel]["ik_world_mean_m"] = world
+            log(f"[kernel] {kernel} S={S} {dtype}: max abs "
+                f"{err[kernel][0]:.3e} max rel {err[kernel][1]:.3e} over "
+                f"{POSE_STEPS} steps"
+                + (f", IK world mean {world:.3e} m" if kernel == "pose_ik"
+                   else "")
+                + f" | kernel {ms:.4f} ms, bound {bound_ms:.5f} ms "
+                f"({moved[kernel]} bytes), roofline share "
+                f"{bound_ms / ms:.4f}; host {1e3 * host_ms:.1f} us a call; "
+                f"the eager chain {plain_ms:.3f} ms a call to a sync")
+    log(f"[kernel] pose step S={S} {dtype}: host {1e3 * step_host:.1f} us "
+        f"a step by the kernels; the eager step {eager_step_ms:.3f} ms to a "
+        "sync")
+    return rows
+
+
+def pose_phase(dev):
+    """The pose kernels at each of POSE_CASES; returns {kernel: rows}."""
+    pose.load_library()
+    rows = {"pose_roots": [], "pose_ik": []}
+    for S, root_dtype in POSE_CASES:
+        for kernel, row in pose_case(dev, S, root_dtype).items():
+            rows[kernel].append(row)
+    torch.cuda.synchronize()
+    return rows
+
+
 def build_sources():
-    """Every CUDA source of the port: one per tuned dtype, and the
-    general kernel's."""
+    """Every CUDA source of the port: one attention kernel per tuned dtype,
+    the general attention kernel's, and the pose kernels'."""
     return list(dict.fromkeys(src for kernels in attention.ROUTES.values()
-                              for src, _, _ in kernels.values()))
+                              for src, _, _ in kernels.values())) + [
+        pose.SOURCE]
 
 
 def build_phase():
     """Every CUDA source of the port, one nvcc each, and the host codec,
-    with g++, all started together."""
+    with g++, all started together; then every library loaded."""
     t0 = time.perf_counter()
     sources = build_sources() + [native.SOURCE]
     build.build_all(sources)
@@ -3877,6 +4101,7 @@ def build_phase():
     for route, kernels in attention.ROUTES.items():
         for dtype in kernels:
             attention.load_library(dtype, route)
+    pose.load_library()
     native.get_lib()
     log(f"[build] phase {time.perf_counter() - t0:.2f} s")
 
@@ -3911,6 +4136,7 @@ def main():
                                          torch.bfloat16)
     general_rows, general_max_abs, _, wide_launches = phase(
         "kernels (general)", general_phase, dev)
+    pose_rows = phase("kernels (pose)", pose_phase, dev)
 
     cfg = GeneratorConfig()
     cvae_cfg = CVAEConfig(output_seq=cfg.num_tokens)
@@ -3918,12 +4144,21 @@ def main():
     # kernel's counter stays at 0 through every serving phase
     reset_launches()
     serving_general = {}
+    pose_reset()
+    serving_pose = {}
 
     def no_general(name):
+        """No general-kernel launch so far, and this phase's pose launches
+        one of each kernel a stream step."""
         serving_general[name] = attention.fused_attention.launches_general
         check(serving_general[name] == 0,
               f"{name}: {serving_general[name]} general-kernel launches on "
               "the shipped config")
+        counts = pose_counts()
+        check_pose_launches(dev, name, counts)
+        serving_pose[name] = counts["pose_roots"]
+        log(f"[pose] {name}: {counts}")
+        pose_reset()
 
     slice_result, launches = phase(
         "slice", slice_phase, cfg, cvae_cfg, dev, streams=STREAMS,
@@ -4062,13 +4297,14 @@ def main():
         f"{cvae_result['encoded_loss_last']:.4f}; on {card}")
 
     def kernel_entry(name, rows, edge, source, launches_by_path,
-                     main_launches, design, shape="decoder streams"):
+                     main_launches, design, shape="decoder streams",
+                     replaces="mocha_sigasia2023_tpu/ops/attention.py:37"):
         main_row = next(r for r in rows if r["shape"] == shape)
         return {
             "name": name,
             "route": "cuda",
             "source": f"mocha_sigasia2023_torch/ops/csrc/{source}",
-            "replaces": "mocha_sigasia2023_tpu/ops/attention.py:37",
+            "replaces": replaces,
             "launches": main_launches,
             "launches_by_path": launches_by_path,
             "max_abs_err": max([r["max_abs_err"] for r in rows] + [edge]),
@@ -4080,6 +4316,8 @@ def main():
         }
 
     general_paths = dict(serving_general)
+    pose_paths = dict(serving_pose, parallel_ranks=parallel_result[
+        "pose_launches_ranks"])
     kernels = [
         kernel_entry("attention", attn_rows, edge_max_abs, attention.SOURCE,
                      {"slice": launches, "cli": cli_launches,
@@ -4107,6 +4345,11 @@ def main():
             name, rows, edge, attention.SOURCE_GENERAL,
             {**general_paths, "wide": wide_launches[dtype]},
             wide_launches[dtype], DESIGN_GENERAL, shape=GENERAL_SHAPE[0]))
+    for name in ("pose_roots", "pose_ik"):
+        kernels.append(kernel_entry(
+            name, pose_rows[name], 0.0, pose.SOURCE, pose_paths,
+            serving_pose["slice"], DESIGN_POSE, shape=POSE_SHAPE,
+            replaces="mocha_sigasia2023_tpu/runtime/stream.py:364"))
     log(f"[time] whole script {time.perf_counter() - T_START:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

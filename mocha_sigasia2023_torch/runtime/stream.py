@@ -37,6 +37,7 @@ from ..kinematics.inertial import ContactState, contact_update
 from ..models import cvae as cvae_mod
 from ..models import generator as gen_mod
 from ..models.layers import batch_shard
+from ..ops import pose
 from ..parallel.mesh import all_gather_rows, data_coordinate
 from ..utils.profiling import span
 from .matching import nn_index, nn_index_grouped
@@ -322,6 +323,159 @@ def _ik_fixup(parents, contact_bones, ik: IKConfig, dt,
     return new_cs, adjusted
 
 
+class PoseRoots(NamedTuple):
+    """What the step's root integrations give: the source's rows with its
+    integrated root (``src_*``), the decoded CVAE-stream (``trans_*``) and
+    NN-stream (``cm_*``) poses with theirs, float32, (S, J, 3|4); and the
+    new root carries, (S, 3|4) in the carry's dtype."""
+
+    src_pos: torch.Tensor
+    src_rot: torch.Tensor
+    src_vel: torch.Tensor
+    src_ang: torch.Tensor
+    trans_pos: torch.Tensor
+    trans_rot: torch.Tensor
+    trans_vel: torch.Tensor
+    cm_pos: torch.Tensor
+    cm_rot: torch.Tensor
+    src_pos0: torch.Tensor
+    src_rot0: torch.Tensor
+    trans_pos0: torch.Tensor
+    trans_rot0: torch.Tensor
+    cm_pos0: torch.Tensor
+    cm_rot0: torch.Tensor
+
+
+def _roots_eager(carry: StreamCarry, x: Dict, t, c, dt) -> PoseRoots:
+    """The step's three root integrations, one launch an operation.  ``t``
+    and ``c``: the CVAE and NN streams' decoded (pos, rot, vel, ang,
+    speed)."""
+    t_pos, t_rot, t_vel, t_ang, t_speed = t
+    c_pos, c_rot, c_vel, c_ang, c_speed = c
+    # source root integration
+    s_rootpos, s_rootrot, s_rootvel, s_rootang = _integrate_root(
+        carry.src_pos0, carry.src_rot0, x["rvel_last"], x["rang_last"], dt)
+    src_pos = _set_root(x["pos_last"], s_rootpos)
+    src_rot = _set_root(x["rot_last"], s_rootrot)
+    src_vel = _set_root(x["vel_last"], s_rootvel)
+    src_ang = _set_root(x["ang_last"], s_rootang)
+
+    # CVAE/trans stream root integration
+    t_ratio = _guarded_ratio(t_speed, x["hips_speed_mean"])
+    t_rootpos, t_rootrot, t_rootvel, t_rootang = _integrate_root(
+        carry.trans_pos0, carry.trans_rot0,
+        x["rvel_last"] * t_ratio[:, None], x["rang_last"], dt)
+    trans_pos, trans_rot, trans_vel, _ = _assemble(
+        t_rootpos, t_rootrot, t_rootvel, t_rootang,
+        t_pos, t_rot, t_vel, t_ang)
+
+    # NN/cm stream root integration
+    c_ratio = _guarded_ratio(c_speed, x["hips_speed_mean"])
+    c_rootpos, c_rootrot, c_rootvel, c_rootang = _integrate_root(
+        carry.cm_pos0, carry.cm_rot0,
+        x["rvel_last"] * c_ratio[:, None], x["rang_last"], dt)
+    cm_pos, cm_rot, _, _ = _assemble(
+        c_rootpos, c_rootrot, c_rootvel, c_rootang,
+        c_pos, c_rot, c_vel, c_ang)
+    return PoseRoots(src_pos, src_rot, src_vel, src_ang, trans_pos,
+                     trans_rot, trans_vel, cm_pos, cm_rot, s_rootpos,
+                     s_rootrot, t_rootpos, t_rootrot, c_rootpos, c_rootrot)
+
+
+def _ik_eager(parents, contact_bones, ik: IKConfig, dt, carry: StreamCarry,
+              x: Dict, r: PoseRoots):
+    """The blends, and foot locking with IK on the IK blend, one launch an
+    operation.  Returns (ik_blend, trans_blended, adjusted rot, contact
+    state)."""
+    # contact fixup with foot locking + IK on the blended pose
+    ik_blend = (0.5 * (carry.ik_prev_pos + r.trans_vel * dt)
+                + 0.5 * r.trans_pos)
+    if ik.enabled:
+        new_cs, adjusted_rot = _ik_fixup(
+            parents, contact_bones, ik, dt, carry.contacts, ik_blend,
+            r.trans_rot, x["contact_last"] > 0.5)
+    else:
+        new_cs, adjusted_rot = carry.contacts, r.trans_rot
+
+    trans_blended = (0.5 * (carry.trans_prev_pos + r.trans_vel * dt)
+                     + 0.5 * r.trans_pos)
+    return ik_blend, trans_blended, adjusted_rot, new_cs
+
+
+def _roots_kernel(plan: pose.Plan, carry: StreamCarry, x: Dict, t, c):
+    """:func:`_roots_eager` as one launch (``ops/pose.pose_roots``).
+    Returns (PoseRoots, the step's outputs of both kernels)."""
+    r = carry.src_pos0
+    out = pose.outputs(plan, r.shape[0], r.dtype, r.device)
+    return PoseRoots(*pose.pose_roots(plan, (
+        r, carry.src_rot0, carry.trans_pos0, carry.trans_rot0,
+        carry.cm_pos0, carry.cm_rot0, x["rvel_last"], x["rang_last"],
+        x["pos_last"], x["rot_last"], x["vel_last"], x["ang_last"],
+        x["hips_speed_mean"], t[0], t[1], t[2], t[4], c[0], c[1], c[4]),
+        out)), out
+
+
+def _ik_kernel(plan: pose.Plan, carry: StreamCarry, x: Dict, r: PoseRoots,
+               out: pose.Outputs):
+    """:func:`_ik_eager` as one launch (``ops/pose.pose_ik``), into the
+    step's ``out``."""
+    ik_blend, trans_blended, adjusted_rot, contact = pose.pose_ik(plan, (
+        carry.ik_prev_pos, carry.trans_prev_pos, r.trans_pos, r.trans_vel,
+        r.trans_rot, x["contact_last"]) + tuple(carry.contacts), out)
+    if contact is None:       # the IK is off
+        return ik_blend, trans_blended, r.trans_rot, carry.contacts
+    return ik_blend, trans_blended, adjusted_rot, ContactState(*contact)
+
+
+# the frame's inputs that the pose math reads
+X_POSE_KEYS = ("rvel_last", "rang_last", "pos_last", "rot_last", "vel_last",
+               "ang_last", "hips_speed_mean", "contact_last")
+
+
+def _pose_route(plan: Optional[pose.Plan], carry: StreamCarry, x: Dict, t,
+                c) -> str:
+    """"kernel" where the pose kernels take this step: a skeleton they take
+    (``plan``), a carry on a card and tensors :func:`_pose_kernels_take`;
+    else "eager": every CPU step, and on a card a step the kernels do not
+    take (bf16 poses, another skeleton, tensors to differentiate), which
+    ``pose.eager_steps`` counts."""
+    if not carry.src_pos0.is_cuda:
+        return "eager"
+    if plan is not None and _pose_kernels_take(plan, carry, x, t, c):
+        return "kernel"
+    pose.eager_steps += 1
+    return "eager"
+
+
+def _pose_kernels_take(plan: pose.Plan, carry: StreamCarry, x: Dict, t,
+                       c) -> bool:
+    """Whether every tensor of the step's pose math lies on the carry's
+    device with its S rows and J (decoded: J - 1) joints, the poses in
+    float32, the roots and contact vectors in one of float32 and float64,
+    the contact flags bool, and none is to be differentiated."""
+    r = carry.src_pos0
+    if r.dtype not in pose.ROOT_DTYPES:
+        return False
+    dev, S, J = r.get_device(), r.shape[0], plan.joints
+    cs = carry.contacts
+    roots = (r, carry.src_rot0, carry.trans_pos0, carry.trans_rot0,
+             carry.cm_pos0, carry.cm_rot0) + tuple(cs[2:])
+    poses = (carry.ik_prev_pos, carry.trans_prev_pos, t[0], t[1], t[2], t[4],
+             c[0], c[1], c[4]) + tuple(x[k] for k in X_POSE_KEYS)
+    for group, dtype in ((roots, r.dtype), (poses, torch.float32),
+                         (cs[:2], torch.bool)):
+        for a in group:
+            if a.dtype is not dtype or a.get_device() != dev \
+                    or a.shape[0] != S:
+                return False
+    if (carry.ik_prev_pos.shape[1] != J or carry.trans_prev_pos.shape[1] != J
+            or x["pos_last"].shape[1] != J or t[0].shape[1] != J - 1
+            or c[0].shape[1] != J - 1):
+        return False
+    return not (torch.is_grad_enabled()
+                and any(a.requires_grad for a in roots + poses))
+
+
 def make_stream_step(gen, cvae, parents, *, contact_bones=(5, 24),
                      ik: IKConfig = IKConfig(), dt: float = 1.0 / 60.0,
                      deterministic: bool = False, compute_cm: bool = True,
@@ -339,11 +493,26 @@ def make_stream_step(gen, cvae, parents, *, contact_bones=(5, 24),
     ``cvae_dtype`` (``compute_dtype`` by default) the CVAE sample, each with
     weights of that dtype; the pose math stays float32.  ``fuse_decodes``
     stacks the two decodes into one K=2 generator call; ``lean_decode``
-    decodes only what the step reads.  Both give the same math."""
+    decodes only what the step reads.  Both give the same math.
+
+    The pose math after the decodes (the ``stream.roots`` and
+    ``stream.ik`` spans) runs as two launches, ``ops/pose``'s kernels,
+    where :func:`_pose_route` finds the step's tensors on a card and a
+    skeleton the kernels take, and eagerly otherwise (every CPU run); the
+    spans' ``route`` attribute says which ("kernel" or "eager").  A step
+    handed the carry that the kernels made on the step before takes them
+    again unchecked: a session (a runner's call, a live stream) keeps its
+    frames' dtypes, device and shapes, and its first step checked them."""
     use_cvae = cvae is not None
     decode_cm = use_cvae and compute_cm
+    plan = pose.plan(parents, contact_bones, dt=dt, ik_enabled=ik.enabled,
+                     max_length_buffer=ik.max_length_buffer,
+                     foot_height=ik.foot_height,
+                     unlock_radius=ik.unlock_radius,
+                     blending_halflife=ik.blending_halflife)
     if cvae_dtype is None:
         cvae_dtype = compute_dtype
+    kernel_carry = [None]     # the carry the pose kernels made last
 
     def decode(consts, src_enc, *chas):
         with span("stream.decode", decodes=len(chas)):
@@ -379,69 +548,42 @@ def make_stream_step(gen, cvae, parents, *, contact_bones=(5, 24),
         else:
             cvae_cha_encoded = nn_cha_encoded
 
+        # each stream's decoded (pos, rot, vel, ang, speed)
         if decode_cm:
-            (t_pos, t_rot, t_vel, t_ang, t_speed), \
-                (c_pos, c_rot, c_vel, c_ang, c_speed) = decode(
-                    consts, x["encoded"], cvae_cha_encoded, nn_cha_encoded)
+            t, c = decode(consts, x["encoded"], cvae_cha_encoded,
+                          nn_cha_encoded)
         else:
-            (t_pos, t_rot, t_vel, t_ang, t_speed), = decode(
-                consts, x["encoded"], cvae_cha_encoded)
-            c_pos, c_rot, c_vel, c_ang, c_speed = (
-                t_pos, t_rot, t_vel, t_ang, t_speed)
+            t, = decode(consts, x["encoded"], cvae_cha_encoded)
+            c = t
 
-        with span("stream.roots"):
-            # source root integration
-            s_rootpos, s_rootrot, s_rootvel, s_rootang = _integrate_root(
-                carry.src_pos0, carry.src_rot0, x["rvel_last"],
-                x["rang_last"], dt)
-            src_pos = _set_root(x["pos_last"], s_rootpos)
-            src_rot = _set_root(x["rot_last"], s_rootrot)
-            src_vel = _set_root(x["vel_last"], s_rootvel)
-            src_ang = _set_root(x["ang_last"], s_rootang)
-
-            # CVAE/trans stream root integration
-            t_ratio = _guarded_ratio(t_speed, x["hips_speed_mean"])
-            t_rootpos, t_rootrot, t_rootvel, t_rootang = _integrate_root(
-                carry.trans_pos0, carry.trans_rot0,
-                x["rvel_last"] * t_ratio[:, None], x["rang_last"], dt)
-            trans_pos, trans_rot, trans_vel, _ = _assemble(
-                t_rootpos, t_rootrot, t_rootvel, t_rootang,
-                t_pos, t_rot, t_vel, t_ang)
-
-            # NN/cm stream root integration
-            c_ratio = _guarded_ratio(c_speed, x["hips_speed_mean"])
-            c_rootpos, c_rootrot, c_rootvel, c_rootang = _integrate_root(
-                carry.cm_pos0, carry.cm_rot0,
-                x["rvel_last"] * c_ratio[:, None], x["rang_last"], dt)
-            cm_pos, cm_rot, _, _ = _assemble(
-                c_rootpos, c_rootrot, c_rootvel, c_rootang,
-                c_pos, c_rot, c_vel, c_ang)
-
-        with span("stream.ik"):
-            # contact fixup with foot locking + IK on the blended pose
-            ik_blend = (0.5 * (carry.ik_prev_pos + trans_vel * dt)
-                        + 0.5 * trans_pos)
-            if ik.enabled:
-                new_cs, adjusted_rot = _ik_fixup(
-                    parents, contact_bones, ik, dt, carry.contacts, ik_blend,
-                    trans_rot, x["contact_last"] > 0.5)
+        route = ("kernel" if carry is kernel_carry[0]
+                 else _pose_route(plan, carry, x, t, c))
+        with span("stream.roots", route=route):
+            if route == "kernel":
+                r, pose_out = _roots_kernel(plan, carry, x, t, c)
             else:
-                new_cs, adjusted_rot = carry.contacts, trans_rot
-
-            trans_blended = (0.5 * (carry.trans_prev_pos + trans_vel * dt)
-                             + 0.5 * trans_pos)
+                r = _roots_eager(carry, x, t, c, dt)
+        with span("stream.ik", route=route):
+            if route == "kernel":
+                ik_blend, trans_blended, adjusted_rot, new_cs = _ik_kernel(
+                    plan, carry, x, r, pose_out)
+            else:
+                ik_blend, trans_blended, adjusted_rot, new_cs = _ik_eager(
+                    parents, contact_bones, ik, dt, carry, x, r)
         new_carry = StreamCarry(
-            src_pos0=s_rootpos, src_rot0=s_rootrot,
-            trans_pos0=t_rootpos, trans_prev_pos=trans_blended,
-            trans_rot0=t_rootrot, ik_prev_pos=ik_blend,
-            cm_pos0=c_rootpos, cm_rot0=c_rootrot,
+            src_pos0=r.src_pos0, src_rot0=r.src_rot0,
+            trans_pos0=r.trans_pos0, trans_prev_pos=trans_blended,
+            trans_rot0=r.trans_rot0, ik_prev_pos=ik_blend,
+            cm_pos0=r.cm_pos0, cm_rot0=r.cm_rot0,
             prev_cha_encoded=cvae_cha_encoded, contacts=new_cs)
+        if route == "kernel":
+            kernel_carry[0] = new_carry
         outputs = {
-            "src_pos": src_pos, "src_rot": src_rot,
-            "src_vel": src_vel, "src_ang": src_ang,
-            "trans_pos": trans_blended, "trans_rot": trans_rot,
+            "src_pos": r.src_pos, "src_rot": r.src_rot,
+            "src_vel": r.src_vel, "src_ang": r.src_ang,
+            "trans_pos": trans_blended, "trans_rot": r.trans_rot,
             "ik_pos": ik_blend, "ik_rot": adjusted_rot,
-            "cm_pos": cm_pos, "cm_rot": cm_rot,
+            "cm_pos": r.cm_pos, "cm_rot": r.cm_rot,
             "contact": x["contact_last"], "nn_index": idx,
         }
         return new_carry, outputs

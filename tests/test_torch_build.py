@@ -253,10 +253,11 @@ def smoke():
 
 
 def test_build_phase_lists_all_three_sources(smoke, monkeypatch):
-    """The three CUDA sources and the host codec are built in one
-    build_all call, then every kernel's library and the codec's load."""
+    """The three attention sources, the pose kernels' source and the host
+    codec are built in one build_all call, then every kernel's library and
+    the codec's load."""
     assert smoke.build_sources() == ["attention.cu", "attention_bf16.cu",
-                                     "attention_general.cu"]
+                                     "attention_general.cu", "pose.cu"]
     sources = smoke.build_sources() + [native.SOURCE]
     built, loaded = [], []
     monkeypatch.setattr(smoke.build, "build_all",
@@ -267,10 +268,12 @@ def test_build_phase_lists_all_three_sources(smoke, monkeypatch):
                         lambda dtype, route: loaded.append((route, dtype)))
     monkeypatch.setattr(smoke.native, "get_lib",
                         lambda: loaded.append("codec"))
+    monkeypatch.setattr(smoke.pose, "load_library",
+                        lambda: loaded.append("pose"))
     smoke.build_phase()
     assert built == [sources]
-    assert loaded[-1] == "codec"
-    assert sorted(loaded[:-1], key=str) == sorted(
+    assert loaded[-2:] == ["pose", "codec"]
+    assert sorted(loaded[:-2], key=str) == sorted(
         [(r, d) for r in ("tuned", "general")
          for d in (torch.float32, torch.bfloat16)], key=str)
 

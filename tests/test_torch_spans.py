@@ -20,6 +20,7 @@ from mocha_sigasia2023_torch.models.cvae import CVAEConfig, init_cvae
 from mocha_sigasia2023_torch.models.generator import (GeneratorConfig,
                                                       init_generator)
 from mocha_sigasia2023_torch.ops import attention as tattn
+from mocha_sigasia2023_torch.ops import pose as tpose
 from mocha_sigasia2023_torch.runtime import features as tfeat
 from mocha_sigasia2023_torch.runtime import stream as tstream
 from mocha_sigasia2023_torch.runtime.live import LiveCharacterizer
@@ -184,6 +185,23 @@ def test_a_live_session_records_push_dispatch_and_wait(pipe):
                      if k.name == "stream.step"]
             assert step.attrs == {"t": i}
         assert {k.request for k in kids} == {i}
+
+
+def test_the_pose_spans_name_their_route(pipe):
+    """Every step's stream.roots and stream.ik spans carry the route the
+    pose math took: "eager" on the CPU, where the pose kernels' launch
+    counters do not move (the batch runner and a live session)."""
+    before = (tpose.pose_roots.launches, tpose.pose_ik.launches)
+    _, batch, _ = profiled(run_batch, pipe)
+    profiling.clear()
+    _, live, _ = profiled(run_live, pipe)
+    for recorded, steps in ((batch, FRAMES - 1),
+                            (live, len(pipe["rows"]) - 1)):
+        for name in ("stream.roots", "stream.ik"):
+            got = [s for s in recorded if s.name == name]
+            assert len(got) == steps
+            assert all(s.attrs == {"route": "eager"} for s in got)
+    assert (tpose.pose_roots.launches, tpose.pose_ik.launches) == before
 
 
 def test_fused_attention_records_its_shapes():
