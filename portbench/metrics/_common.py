@@ -18,3 +18,12 @@ def kernels_per(trace, kind, unit):
     if trace.kind != kind or sl is None or not sl.kernels:
         return None
     return len(sl.kernels) / sl.units[unit]
+
+
+def launch_calls_per(trace, kind, unit):
+    """The host's launch calls in the profiled slice (a CUDA graph's replay
+    is one) per ``unit`` of work."""
+    sl = trace.slice
+    if trace.kind != kind or sl is None or not sl.calls:
+        return None
+    return len(sl.calls) / sl.units[unit]

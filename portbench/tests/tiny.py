@@ -26,8 +26,10 @@ SIZES = {
 }
 
 
-def write(root: str, real_cell: str, name: str = None) -> str:
-    """Write a tiny copy of ``real_cell`` under ``root``; returns its name."""
+def write(root: str, real_cell: str, name: str = None, **mix) -> str:
+    """Write a tiny copy of ``real_cell`` under ``root``; returns its name.
+    ``mix`` sets parameters of its traffic mix over the tiny sizes (None
+    leaves one out)."""
     real = harness.load_cell(real_cell)
     name = name or f"tiny-{real_cell}"
     for sub in ("workloads", "configs", "traffic"):
@@ -36,7 +38,8 @@ def write(root: str, real_cell: str, name: str = None) -> str:
     config["model"].update(WIDTHS)
     if config.get("cvae") is not None:
         config["cvae"].update(latent_dim=32, feedforward_dim=32)
-    mix = dict(real.mix, **SIZES[real_cell])
+    mix = {k: v for k, v in dict(real.mix, **SIZES[real_cell], **mix).items()
+           if v is not None}
     spec = dict(real.spec, config=f"{name}-config", traffic=f"{name}-mix")
     for sub, stem, obj in (("configs", spec["config"], config),
                            ("traffic", spec["traffic"], mix),

@@ -12,6 +12,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 NAME_CHARS = 160
+# host calls into the CUDA runtime or driver that launch device work; a
+# CUDA graph's replay is one call however many kernels it holds.  The
+# driver's two are how a kernel loaded as a module (Triton's) is launched.
+LAUNCH_CALLS = frozenset(("cudaLaunchKernel", "cudaLaunchKernelExC",
+                          "cuLaunchKernel", "cuLaunchKernelEx",
+                          "cudaGraphLaunch"))
 
 
 def sync(dev: torch.device) -> None:
@@ -22,11 +28,13 @@ def sync(dev: torch.device) -> None:
 @dataclass
 class Slice:
     """One profiled slice: its host wall time, its device operations
-    (name, start ns, end ns) and the units of work it held."""
+    (name, start ns, end ns), the units of work it held, and the host's
+    launch calls (name, start ns, end ns) the profiler recorded."""
 
     wall_s: float
     ops: List[Tuple[str, int, int]]
     units: Dict[str, float] = field(default_factory=dict)
+    calls: List[Tuple[str, int, int]] = field(default_factory=list)
 
     @property
     def kernels(self) -> List[Tuple[str, int, int]]:
@@ -64,21 +72,24 @@ class Slice:
                 [:top]}
 
 
-def _device_ops(prof) -> List[Tuple[str, int, int]]:
+def _events(prof):
     """(name, start ns, end ns) of every operation the profiler saw on a
-    CUDA device."""
+    CUDA device, and of every host call in ``LAUNCH_CALLS`` (the CUDA
+    activity's runtime and driver calls)."""
     from torch.autograd import DeviceType
 
-    ops = []
+    ops, calls = [], []
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA:
+        on_device = e.device_type() == DeviceType.CUDA
+        if not on_device and e.name() not in LAUNCH_CALLS:
             continue
         if hasattr(e, "start_ns"):
             start, dur = e.start_ns(), e.duration_ns()
         else:
             start, dur = e.start_us() * 1000, e.duration_us() * 1000
-        ops.append((e.name(), int(start), int(start + dur)))
-    return ops
+        (ops if on_device else calls).append(
+            (e.name(), int(start), int(start + dur)))
+    return ops, calls
 
 
 def profile_slice(fn: Callable, dev: torch.device, **units):
@@ -97,7 +108,8 @@ def profile_slice(fn: Callable, dev: torch.device, **units):
         out = fn()
         sync(dev)
         wall = time.perf_counter() - t0
-    return out, Slice(wall_s=wall, ops=_device_ops(prof), units=dict(units))
+    ops, calls = _events(prof)
+    return out, Slice(wall_s=wall, ops=ops, units=dict(units), calls=calls)
 
 
 class Spans:

@@ -10,12 +10,16 @@ without resetting the session, so no bootstrap frame falls inside it.
 
 Mix parameters: ``clip_frames``, ``pad``, ``warmup_frames``,
 ``profile_frames`` (pushed under the profiler at the start of a traced
-window), and the character's as in ``offline.py`` (``characters`` 1).
+window), ``window_frames`` (optional: the window also ends at that many
+timed frames, so the check's replay of every served frame stays bounded
+however fast the program serves), and the character's as in
+``offline.py`` (``characters`` 1).
 """
 
 from __future__ import annotations
 
 import importlib
+import sys
 import time
 from typing import Dict, List
 
@@ -119,7 +123,11 @@ def setup(cell, seed, dev, impl):
 
 
 def window(cell, session: Session, seconds: float, traced: bool):
+    """Push frames until one ends at or past ``seconds`` or the mix's
+    ``window_frames``-th has been timed, whichever comes first (a traced
+    run's profiled frames come before and count toward neither)."""
     mix, dev = cell.mix, session.dev
+    cap = mix.get("window_frames")
     first = len(session.outs)
     slice_ = None
     if traced:
@@ -137,7 +145,11 @@ def window(cell, session: Session, seconds: float, traced: bool):
         session.push()
         te = time.perf_counter()
         latencies.append(te - ts)
+        if cap is not None and len(latencies) >= int(cap):
+            ended_by = "cap"
+            break
         if te - t0 >= seconds:
+            ended_by = "clock"
             break
     pushed = session.outs[first:]
     failed = sum(1 for o in pushed
@@ -150,7 +162,8 @@ def window(cell, session: Session, seconds: float, traced: bool):
         trace = Trace(kind="live", mix=mix, slice=slice_, spans=Spans(dev))
     return {"attempted": len(pushed), "failed": failed, "e2e": e2e,
             "trace": trace, "outs": session.outs,
-            "rows": len(session.rows), "noise_seed": session.noise_seed}
+            "rows": len(session.rows), "noise_seed": session.noise_seed,
+            "window_frames": len(latencies), "ended_by": ended_by}
 
 
 def release(session: Session) -> None:
@@ -190,11 +203,18 @@ def check(cell, seed, dev, record, limits) -> Dict[str, float]:
     host = {k: feats[k].cpu().numpy() for k in FEAT_KEYS}
     keys = POS_KEYS + ROT_KEYS + ("ik_rot",)
     got = []
+    t0 = time.perf_counter()
     with common.stage("check: reference replay", dev):
         for i in range(len(outs)):
             r = int(rows[i])
             got.append(replay.push_frame({k: host[k][r] for k in FEAT_KEYS},
                                          nn_idx=picks[i]))
+    replay_s = time.perf_counter() - t0
+    print(f"[portbench] live window: {record['window_frames']} frames, "
+          f"ended by the {record['ended_by']} (window_frames "
+          f"{mix.get('window_frames')}); replay: {len(outs)} frames in "
+          f"{replay_s:.3f} s, {replay_s / len(outs):.6f} s a frame",
+          file=sys.stderr, flush=True)
     mine = {k: np.stack([o[k] for o in got]).astype(np.float32)
             for k in keys}
     theirs = {k: np.stack([o[k] for o in outs]) for k in keys}
