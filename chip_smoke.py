@@ -254,6 +254,7 @@ from mocha_sigasia2023_torch.parallel import distributed  # noqa: E402
 from mocha_sigasia2023_torch.parallel.mesh import (  # noqa: E402
     make_mesh, shard_batch)
 from mocha_sigasia2023_torch.runtime import export, pose_frames  # noqa: E402
+from mocha_sigasia2023_torch.runtime import step_graph  # noqa: E402
 from mocha_sigasia2023_torch.runtime import stream  # noqa: E402
 from mocha_sigasia2023_torch.runtime import features as rtf  # noqa: E402
 from mocha_sigasia2023_torch.runtime.live import (  # noqa: E402
@@ -280,9 +281,11 @@ if os.environ.get(DETERMINISTIC_FLAG) in ("1", "warn"):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-# stream steps run on a card in this process (the ranks that import this
-# file count theirs): every stream step the port makes is counted here,
-# so that each phase can hold the pose kernels' launches to its steps
+# stream steps run eagerly on a card in this process (the ranks that
+# import this file count theirs): every call of a stream step the port
+# makes is counted here, but for a CUDA graph's capture, which runs
+# nothing; with step_graph.replays, each phase can hold the pose kernels'
+# launches to its steps
 STEPS_RUN = [0]
 
 
@@ -291,7 +294,8 @@ def _counting_steps(make):
         step = make(*args, **kw)
 
         def counted(consts, carry, x, generator=None):
-            if carry.src_pos0.is_cuda:
+            if (carry.src_pos0.is_cuda
+                    and not torch.cuda.is_current_stream_capturing()):
                 STEPS_RUN[0] += 1
             return step(consts, carry, x, generator)
         return counted
@@ -3930,25 +3934,32 @@ def wall_ms(fn, calls):
 
 
 def pose_counts():
-    """Stream steps run on the card, the pose kernels' launches and the
-    card's eager pose steps since :func:`pose_reset`."""
-    return {"steps": STEPS_RUN[0], "pose_roots": pose.pose_roots.launches,
-            "pose_ik": pose.pose_ik.launches, "eager": pose.eager_steps}
+    """Stream steps run on the card (eagerly, and as CUDA graph replays),
+    the pose kernels' launches, the card's eager pose steps, the graphs
+    captured and the card's steps that went eager instead of to a graph
+    (``graph_eager``), since :func:`pose_reset`."""
+    return {"steps": STEPS_RUN[0] + step_graph.replays,
+            "pose_roots": pose.pose_roots.launches,
+            "pose_ik": pose.pose_ik.launches, "eager": pose.eager_steps,
+            "replays": step_graph.replays, "captures": step_graph.captures,
+            "graph_eager": step_graph.eager_steps}
 
 
 def pose_reset():
     STEPS_RUN[0] = 0
     pose.pose_roots.launches = pose.pose_ik.launches = 0
     pose.eager_steps = 0
+    step_graph.replays = step_graph.captures = step_graph.eager_steps = 0
 
 
 def check_pose_launches(dev, name, counts, steps=None):
     """Each pose kernel launched once a stream step on the card, no step
-    took the eager pose math there, and (``steps``) the steps the phase
-    implies."""
+    took the eager pose math there or went eager instead of to a graph,
+    and (``steps``) the steps the phase implies."""
     want = counts["steps"] if steps is None else steps
     check_launches(dev, counts["pose_roots"] == counts["pose_ik"] == want
-                   == counts["steps"] and counts["eager"] == 0,
+                   == counts["steps"] and counts["eager"] == 0
+                   and counts["graph_eager"] == 0,
                    f"{name}: pose kernels {counts}; want one launch of each "
                    f"a step ({want} steps) and no eager step on the card")
 

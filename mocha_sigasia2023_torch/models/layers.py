@@ -162,6 +162,11 @@ def batch_shard(index: int, count: int):
         _BATCH_SHARD = saved
 
 
+def current_shard():
+    """(block index, block count) that :func:`draw` cuts to now."""
+    return _BATCH_SHARD
+
+
 def draw(fn, shape, generator, device, dtype=None) -> torch.Tensor:
     """``fn(shape, generator=, device=, dtype=)`` (``torch.rand`` or
     ``torch.randn``), under :func:`batch_shard` drawn for the whole batch

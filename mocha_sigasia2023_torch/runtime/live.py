@@ -13,6 +13,13 @@ frame i-1's pose while the device runs frame i: it waits on a CUDA event
 recorded after frame i-1's device -> host copy, the counterpart of JAX's
 asynchronous dispatch.  The pinned buffers are double-buffered, so the next
 frame's upload never overwrites a buffer a queued copy still reads.
+
+On a card a frame's device work between the two copies (the match, the
+step and the flattening of its pose) is one replay of a CUDA graph
+(``runtime/step_graph``), captured at the session's first step after that
+step has run eagerly; the bootstrap frame is eager, and after a
+:meth:`LiveCharacterizer.reset` it seeds the graph's carry.  On the CPU
+every frame is eager.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from ..device import check_module_device, resolve_device
 from ..utils.profiling import span
+from . import step_graph
 from . import stream as rts
 from .matching import nn_index
 from .stream import IKConfig, RuntimeConsts
@@ -97,9 +105,12 @@ class LiveCharacterizer:
         self._frames = 0        # frames dispatched: picks the buffer pair
         self._carry = None
         self._pending = None    # (buffer, event) of the frame in flight
+        self._graph = None      # the captured frame, and the carry it reads
+        self._graph_carry = None
 
     def reset(self) -> None:
-        """Forget the stream: the next frame bootstraps a new one."""
+        """Forget the stream: the next frame bootstraps a new one (into the
+        captured graph's carry, where there is one)."""
         if self._pending is not None and self._pending[1] is not None:
             self._pending[1].synchronize()
         self._carry = None
@@ -127,6 +138,16 @@ class LiveCharacterizer:
         with span("live.dispatch"):
             return self._dispatch_frame(frame)
 
+    def _inputs(self):
+        """The uploaded frame's features, with its match."""
+        x = self._unflatten(self._d_in)
+        x["nn_idx"] = self._match(x)
+        return x
+
+    def _flatten(self, out):
+        return torch.cat([out[k].to(torch.float32).reshape(-1)
+                          for k in self.OUT_KEYS])
+
     def _dispatch_frame(self, frame: Dict):
         b = self._frames % 2
         t = self._frames
@@ -134,25 +155,60 @@ class LiveCharacterizer:
         np.concatenate([np.asarray(frame[k], np.float32).reshape(-1)
                         for k in self.FEAT_KEYS], out=self._h_in[b].numpy())
         self._d_in.copy_(self._h_in[b], non_blocking=True)
-        x = self._unflatten(self._d_in)
-        x["nn_idx"] = self._match(x)
         if self._carry is None:
-            self._carry, out = rts.init_stream(
-                self._gen, self._sc, self._parents, x,
+            carry, out = rts.init_stream(
+                self._gen, self._sc, self._parents, self._inputs(),
                 contact_bones=self._contact_bones, dt=self._dt,
                 root_dtype=self._root_dtype)
+            if self._graph is not None:
+                step_graph.copy_tree(self._graph_carry, carry)
+                carry = self._graph_carry
+            self._carry = carry
+            flat = self._flatten(out)
+        elif step_graph.route(self._carry.src_pos0) == "graph":
+            flat = self._graph_frame(t)
         else:
-            with span("stream.step", t=t):
+            x = self._inputs()
+            with span("stream.step", t=t, route="eager"):
                 self._carry, out = self._step(self._sc, self._carry, x,
                                               self._generator)
-        flat = torch.cat([out[k].to(torch.float32).reshape(-1)
-                          for k in self.OUT_KEYS])
+            flat = self._flatten(out)
         self._h_out[b].copy_(flat, non_blocking=True)
         if self._dev.type != "cuda":
             return self._h_out[b], None
         event = torch.cuda.Event()
         event.record()
         return self._h_out[b], event
+
+    def _graph_frame(self, t):
+        """Frame ``t``'s match, step and flattened pose as a replay; at the
+        session's first step, that step eagerly on a side stream, then the
+        capture."""
+        if self._graph is not None:
+            with span("stream.step", t=t, route="graph"):
+                self._graph.replay()
+            return self._graph.out
+
+        def frame():
+            return self._step(self._sc, self._carry, self._inputs(),
+                              self._generator)
+
+        side = torch.cuda.Stream(self._dev)
+        with span("stream.step", t=t, route="eager"):
+            carry, out = step_graph.warm_up(frame, side)
+            flat = self._flatten(out)
+        carry = step_graph.clone_tree(carry)
+
+        def body():
+            new, out = self._step(self._sc, carry, self._inputs(),
+                                  self._generator)
+            flat = self._flatten(out)
+            step_graph.copy_tree(carry, new)
+            return flat
+
+        self._graph = step_graph.Graph(body, side, self._generator)
+        self._carry = self._graph_carry = carry
+        return flat
 
     def _unpack(self, pending) -> Dict[str, np.ndarray]:
         buf, event = pending

@@ -36,10 +36,11 @@ from ..kinematics import quat
 from ..kinematics.inertial import ContactState, contact_update
 from ..models import cvae as cvae_mod
 from ..models import generator as gen_mod
-from ..models.layers import batch_shard
+from ..models.layers import batch_shard, current_shard
 from ..ops import pose
 from ..parallel.mesh import all_gather_rows, data_coordinate
 from ..utils.profiling import span
+from . import step_graph
 from .matching import nn_index, nn_index_grouped
 
 
@@ -93,6 +94,10 @@ class StreamCarry(NamedTuple):
 
 
 MATCH_TCHUNK = 32   # frames per pre-loop NN matmul
+# elements a frame's packed input starts each tensor at a multiple of, so
+# that a graph's step reads each from a 512-byte boundary, as eager reads
+# the encodings (step_graph.Rows)
+INPUT_ALIGN = 128
 
 FEAT_KEYS = ("encoded", "pos_last", "rot_last", "vel_last", "ang_last",
              "rvel_last", "rang_last", "contact_last", "hips_speed_mean")
@@ -499,10 +504,10 @@ def make_stream_step(gen, cvae, parents, *, contact_bones=(5, 24),
     ``stream.ik`` spans) runs as two launches, ``ops/pose``'s kernels,
     where :func:`_pose_route` finds the step's tensors on a card and a
     skeleton the kernels take, and eagerly otherwise (every CPU run); the
-    spans' ``route`` attribute says which ("kernel" or "eager").  A step
-    handed the carry that the kernels made on the step before takes them
-    again unchecked: a session (a runner's call, a live stream) keeps its
-    frames' dtypes, device and shapes, and its first step checked them."""
+    spans' ``route`` attribute says which ("kernel" or "eager").  In a
+    runner or a live session on a card, this function runs at the
+    session's first step and at the capture of its CUDA graph
+    (:mod:`.step_graph`), whose replays run every later step."""
     use_cvae = cvae is not None
     decode_cm = use_cvae and compute_cm
     plan = pose.plan(parents, contact_bones, dt=dt, ik_enabled=ik.enabled,
@@ -512,7 +517,6 @@ def make_stream_step(gen, cvae, parents, *, contact_bones=(5, 24),
                      blending_halflife=ik.blending_halflife)
     if cvae_dtype is None:
         cvae_dtype = compute_dtype
-    kernel_carry = [None]     # the carry the pose kernels made last
 
     def decode(consts, src_enc, *chas):
         with span("stream.decode", decodes=len(chas)):
@@ -556,8 +560,7 @@ def make_stream_step(gen, cvae, parents, *, contact_bones=(5, 24),
             t, = decode(consts, x["encoded"], cvae_cha_encoded)
             c = t
 
-        route = ("kernel" if carry is kernel_carry[0]
-                 else _pose_route(plan, carry, x, t, c))
+        route = _pose_route(plan, carry, x, t, c)
         with span("stream.roots", route=route):
             if route == "kernel":
                 r, pose_out = _roots_kernel(plan, carry, x, t, c)
@@ -576,8 +579,6 @@ def make_stream_step(gen, cvae, parents, *, contact_bones=(5, 24),
             trans_rot0=r.trans_rot0, ik_prev_pos=ik_blend,
             cm_pos0=r.cm_pos0, cm_rot0=r.cm_rot0,
             prev_cha_encoded=cvae_cha_encoded, contacts=new_cs)
-        if route == "kernel":
-            kernel_carry[0] = new_carry
         outputs = {
             "src_pos": r.src_pos, "src_rot": r.src_rot,
             "src_vel": r.src_vel, "src_ang": r.src_ang,
@@ -669,6 +670,72 @@ def check_consts_device(consts: RuntimeConsts, dev: torch.device) -> None:
                              f"on {dev}")
 
 
+def _layout(tree) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in step_graph.leaves(tree))
+
+
+class _GraphedSteps:
+    """A batch runner's frame steps as one CUDA graph (:mod:`.step_graph`),
+    captured from ``step`` after its eager warm-up step (``carry`` and
+    ``out_like``, that step's carry and outputs).  The graph reads static
+    copies of the stream constants' norms and of the carry, and up to
+    ``capacity`` frames of inputs (``frames``: leading n, ``nn_idx``
+    included), packed a row a frame and read at a device-side counter;
+    it writes each frame's outputs into that frame's row and the new carry
+    over the old.  Where the step draws noise (``generator`` given), the
+    graph draws from a generator of its own, which takes the caller's
+    generator's state before a run's replays and hands the advanced state
+    back after them, so that the caller's ends where eager steps leave
+    it."""
+
+    def __init__(self, step, sc: RuntimeConsts, carry: StreamCarry,
+                 frames: Dict, out_like: Dict, generator, capacity: int,
+                 stream):
+        dev = carry.src_pos0.device
+        self.capacity = capacity
+        self.norms = [n for n in RuntimeConsts._fields
+                      if n not in DATABASE_FIELDS]
+        self.sc = sc._replace(**{n: getattr(sc, n).clone()
+                                 for n in self.norms})
+        self.carry = step_graph.clone_tree(carry)
+        self.inputs = step_graph.Rows({k: v[0] for k, v in frames.items()},
+                                      capacity, align=INPUT_ALIGN)
+        self.outputs = step_graph.Rows(out_like, capacity)
+        self.counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.generator = (None if generator is None
+                          else torch.Generator(device=dev))
+
+        def body():
+            x = self.inputs.gather(self.counter)
+            new_carry, out = step(self.sc, self.carry, x, self.generator)
+            self.outputs.scatter(self.counter, out)
+            step_graph.copy_tree(self.carry, new_carry)
+            self.counter.add_(1)
+
+        self.graph = step_graph.Graph(body, stream, self.generator)
+
+    def run(self, sc: RuntimeConsts, carry: StreamCarry, frames: Dict,
+            generator, start: int, t0: int) -> Dict:
+        """Frames ``start``.. of ``frames`` stepped from ``carry``, one
+        replay each (``t0``: the first frame's number in the runner call);
+        returns their outputs, leading frames - start.  The carry the last
+        step made is ``self.carry``."""
+        n = len(frames["nn_idx"])
+        step_graph.copy_tree([getattr(self.sc, k) for k in self.norms],
+                             [getattr(sc, k) for k in self.norms])
+        step_graph.copy_tree(self.carry, carry)
+        self.inputs.load(frames)
+        self.counter.fill_(start)
+        if generator is not None:
+            self.generator.set_state(generator.get_state())
+        for t in range(start, n):
+            with span("stream.step", t=t0 + t, route="graph"):
+                self.graph.replay()
+        if generator is not None:
+            generator.set_state(self.generator.get_state())
+        return self.outputs.frames(start, n)
+
+
 def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
                       contact_bones=(5, 24), ik: IKConfig = IKConfig(),
                       dt: float = 1.0 / 60.0, deterministic: bool = False,
@@ -701,6 +768,14 @@ def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
     time, so the device holds about two chunks of the (T, S, tokens, dim)
     stream instead of all of it; the carry crosses chunk boundaries
     unchanged and the outputs equal the monolithic runner's.
+
+    The frame steps take :func:`.step_graph.route`: on a card (grad is off
+    in the runner) the first step of the runner's first call with a given
+    layout (streams, dtypes, shard) runs eagerly and the step is captured
+    as a CUDA graph; every later step is one replay (the ``stream.step``
+    span's ``route`` says "graph" or "eager").  The graph takes a call's xs
+    into buffers of its own, so a call holds xs twice on the card.  On the
+    CPU every step is eager.
     """
     dev = resolve_device(device)
     check_module_device(gen, dev, "generator")
@@ -789,23 +864,54 @@ def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
                                   root_dtype=root_dtype,
                                   compute_dtype=compute_dtype,
                                   lean_decode=lean_decode)
-        return (sc, cid, group_size), carry, [out0]
+        return (sc, cid, group_size), carry, [_frames(out0)]
+
+    graphs = {}     # _GraphedSteps by the layout of what the step reads
 
     def scan(session, carry, xs, generator, outs):
-        """The step over xs's frames, appending each frame's outputs."""
+        """The step over xs's frames; appends their outputs to ``outs``
+        (blocks with a leading frame axis) and returns the last carry."""
         sc, cid, group_size = session
         idx_xs = match_frames(sc, xs, cid, group_size)
-        for t in range(idx_xs.shape[0]):
+        n = idx_xs.shape[0]
+        t0 = sum(len(o["nn_index"]) for o in outs)
+        if n and step_graph.route(carry.src_pos0, n) == "graph":
+            return scan_graph(sc, carry, dict(xs, nn_idx=idx_xs), generator,
+                              outs, t0)
+        for t in range(n):
             x = {k: v[t] for k, v in xs.items()}
             x["nn_idx"] = idx_xs[t]
-            with span("stream.step", t=len(outs)):
+            with span("stream.step", t=t0 + t, route="eager"):
                 carry, o = step(sc, carry, x, generator)
-            outs.append(o)
+            outs.append(_frames(o))
         return carry
+
+    def scan_graph(sc, carry, frames, generator, outs, t0):
+        n = len(frames["nn_idx"])
+        x = {k: v[0] for k, v in frames.items()}
+        # a generator the graph draws from, if the step draws noise
+        noise = None if cvae is None or deterministic else generator
+        key = (current_shard(), noise is None, tuple(x), _layout(x),
+               _layout(carry))
+        steps = graphs.get(key)
+        start = 0
+        if steps is None or steps.capacity < n:
+            graphs.pop(key, None)     # its buffers go before the new ones
+            side = torch.cuda.Stream(dev)     # the warm-up's and capture's
+            with span("stream.step", t=t0, route="eager"):
+                carry, o = step_graph.warm_up(
+                    lambda: step(sc, carry, x, generator), side)
+            outs.append(_frames(o))
+            start = 1
+            steps = graphs[key] = _GraphedSteps(step, sc, carry, frames, o,
+                                                noise, n, side)
+        if start < n:
+            outs.append(steps.run(sc, carry, frames, noise, start, t0))
+        return steps.carry
 
     def finish(session, outs):
         with span("stream.finish"):
-            out = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+            out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
             cid = session[1]
             if cid is not None:   # character-local, as a dedicated runner's
                 out["nn_index"] = out["nn_index"] - cid * M
@@ -853,6 +959,11 @@ def make_batch_runner(gen, cvae, consts: RuntimeConsts, parents, *,
 
     runner.chunked = chunked
     return runner
+
+
+def _frames(out: Dict) -> Dict:
+    """One frame's outputs as a block of one frame."""
+    return {k: v[None] for k, v in out.items()}
 
 
 def run_sharded(runner, mesh, frame0: Dict, xs: Dict,

@@ -363,9 +363,11 @@ def test_card_torch_arithmetic_is_what_the_kernels_copy(card):
 
 @pytest.mark.card
 def test_card_steps_take_the_kernel_route_and_say_so(card):
-    """A batch runner and a live session on the card (tiny widths): every
-    step's stream.roots and stream.ik spans carry route "kernel", each step
-    launches each pose kernel once, and the poses are finite."""
+    """A batch runner and a live session on the card (tiny widths): each
+    step launches each pose kernel once, every stream.roots and stream.ik
+    span carries route "kernel" (each session records them at its first
+    step, which runs eagerly, and at the capture of its CUDA graph; the
+    replays record no child spans), and the poses are finite."""
     from torch.profiler import ProfilerActivity, profile
 
     from mocha_sigasia2023_torch.cli.characterize import derive_norm
@@ -415,9 +417,12 @@ def test_card_steps_take_the_kernel_route_and_say_so(card):
     assert (pose.pose_roots.launches - before[0],
             pose.pose_ik.launches - before[1]) == (steps, steps)
     assert pose.eager_steps == eager
+    routes = [s.attrs["route"] for s in profiling.spans()
+              if s.name == "stream.step"]
+    assert sorted(routes) == ["eager"] * 2 + ["graph"] * (steps - 2)
     for name in ("stream.roots", "stream.ik"):
         got = [s for s in profiling.spans() if s.name == name]
-        assert len(got) == steps
+        assert len(got) == 2 * 2          # a warm-up and a capture each
         assert all(s.attrs == {"route": "kernel"} for s in got), name
     profiling.clear()
     for k, v in out.items():

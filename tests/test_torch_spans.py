@@ -183,7 +183,7 @@ def test_a_live_session_records_push_dispatch_and_wait(pipe):
         if i:
             step, = [k for k in children(recorded, dispatch)
                      if k.name == "stream.step"]
-            assert step.attrs == {"t": i}
+            assert step.attrs == {"t": i, "route": "eager"}
         assert {k.request for k in kids} == {i}
 
 
