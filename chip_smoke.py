@@ -194,7 +194,10 @@ Phases (any failure exits non-zero; each prints its wall time):
      eager chain it replaces (wall time to a synchronize: host-bound).
   Every serving phase (4-14) runs each pose kernel exactly once a stream
   step on the card, and no step there takes the eager pose math
-  (pose.eager_steps stays at 0; the parallel phase's ranks count theirs).
+  (pose.eager_steps stays at 0; the parallel phase's ranks count theirs);
+  each phase logs the encoder's chunk graph counters, and no full
+  encoder chunk there goes eager instead of to a replay
+  (runtime/features.eager_chunks stays at 0).
 
 The line before the last is a JSON object describing every kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -3937,12 +3940,17 @@ def pose_counts():
     """Stream steps run on the card (eagerly, and as CUDA graph replays),
     the pose kernels' launches, the card's eager pose steps, the graphs
     captured and the card's steps that went eager instead of to a graph
-    (``graph_eager``), since :func:`pose_reset`."""
+    (``graph_eager``), and the encoder's chunk graphs: captures, replays
+    and the card's full chunks that went eager instead of to a replay
+    (``eager_chunks``), since :func:`pose_reset`."""
     return {"steps": STEPS_RUN[0] + step_graph.replays,
             "pose_roots": pose.pose_roots.launches,
             "pose_ik": pose.pose_ik.launches, "eager": pose.eager_steps,
             "replays": step_graph.replays, "captures": step_graph.captures,
-            "graph_eager": step_graph.eager_steps}
+            "graph_eager": step_graph.eager_steps,
+            "chunk_captures": rtf.chunk_captures,
+            "chunk_replays": rtf.chunk_replays,
+            "eager_chunks": rtf.eager_chunks}
 
 
 def pose_reset():
@@ -3950,18 +3958,22 @@ def pose_reset():
     pose.pose_roots.launches = pose.pose_ik.launches = 0
     pose.eager_steps = 0
     step_graph.replays = step_graph.captures = step_graph.eager_steps = 0
+    rtf.chunk_captures = rtf.chunk_replays = rtf.eager_chunks = 0
 
 
 def check_pose_launches(dev, name, counts, steps=None):
     """Each pose kernel launched once a stream step on the card, no step
-    took the eager pose math there or went eager instead of to a graph,
-    and (``steps``) the steps the phase implies."""
+    took the eager pose math there or went eager instead of to a graph, no
+    full encoder chunk went eager instead of to a replay, and (``steps``)
+    the steps the phase implies."""
     want = counts["steps"] if steps is None else steps
     check_launches(dev, counts["pose_roots"] == counts["pose_ik"] == want
                    == counts["steps"] and counts["eager"] == 0
-                   and counts["graph_eager"] == 0,
+                   and counts["graph_eager"] == 0
+                   and counts["eager_chunks"] == 0,
                    f"{name}: pose kernels {counts}; want one launch of each "
-                   f"a step ({want} steps) and no eager step on the card")
+                   f"a step ({want} steps), no eager step and no eager "
+                   "encoder chunk on the card")
 
 
 def nbytes(tensors):

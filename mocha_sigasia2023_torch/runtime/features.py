@@ -5,12 +5,13 @@ runtime's path (:126-292, :408, :437, :488): raw clip arrays are featurized
 (one batched pass over all clips), world FK runs once per frame, stride-1
 windows are gathered from those per-frame arrays in chunks of ``chunk``
 windows (128 by default), each chunk is encoded, and only the window-last
-rows the stream step reads are derived.  The dataset exports (:40-67,
-:547-631): ``encode_windows`` over raw window features in batches of 256,
-and the database passes behind ``cnt_norm.npz`` (``encode_database``,
-``compute_cnt_norm``) and the per-character feature files
-(``collect_character_features``), over the windows
-``data.dataset.database_window_features`` selects.
+rows the stream step reads are derived.  On a card the chunks after the
+first are replays of one CUDA graph a call (:func:`_encode_chunks`).
+The dataset exports (:40-67, :547-631): ``encode_windows`` over raw
+window features in batches of 256, and the database passes behind
+``cnt_norm.npz`` (``encode_database``, ``compute_cnt_norm``) and the
+per-character feature files (``collect_character_features``), over the
+windows ``data.dataset.database_window_features`` selects.
 """
 
 from __future__ import annotations
@@ -29,6 +30,13 @@ from ..device import check_module_device, resolve_device
 from ..kinematics import quat
 from ..models import generator as gen_mod
 from ..utils.profiling import span
+from . import step_graph
+
+# the encoder's chunk graph (_encode_chunks): captures, replays, and the
+# full chunks on a card that went eager instead of to a replay
+chunk_captures = 0
+chunk_replays = 0
+eager_chunks = 0
 
 
 @torch.no_grad()
@@ -101,19 +109,12 @@ def _root_masks(parents: tuple, device: torch.device):
                             device=device))
 
 
-def _stream_chunk_outputs(pf, ci, cp, bone_parents, gen, X_mean, X_std,
-                          emit_cnt=True, compute_dtype=None):
+def _chunk_outputs(pf, ci, cp, bone_parents, gen, X_mean, X_std, emit_cnt,
+                   compute_dtype):
     """One chunk of windows (``ci`` (C, window) row indices into the
     per-frame arrays, ``cp`` their pad mask) -> encoder features + the
     window-last stream rows.  ``compute_dtype`` casts the encoder input;
     encoded and cnt come back float32."""
-    with span("features.encode", windows=len(ci)):
-        return _chunk_outputs(pf, ci, cp, bone_parents, gen, X_mean, X_std,
-                              emit_cnt, compute_dtype)
-
-
-def _chunk_outputs(pf, ci, cp, bone_parents, gen, X_mean, X_std, emit_cnt,
-                   compute_dtype):
     is_root, is_rchild = _root_masks(
         tuple(int(p) for p in np.asarray(bone_parents)), ci.device)
 
@@ -195,12 +196,81 @@ def _clip_windows(clips: Sequence[Dict], gen, norm, window, chunk, emit_cnt,
     X_mean = torch.as_tensor(norm["X_mean"], dtype=torch.float32, device=dev)
     X_std = torch.as_tensor(norm["X_std"], dtype=torch.float32, device=dev)
 
-    parts = [_stream_chunk_outputs(pf, flat_idx[s:s + chunk],
-                                   flat_pad[s:s + chunk], bone_parents, gen,
-                                   X_mean, X_std, emit_cnt, compute_dtype)
-             for s in range(0, S * n_w, chunk)]
-    return {k: torch.cat([p[k] for p in parts]).reshape(
-        (S, n_w) + parts[0][k].shape[1:]) for k in parts[0]}
+    out = _encode_chunks(
+        lambda ci, cp: _chunk_outputs(pf, ci, cp, bone_parents, gen, X_mean,
+                                      X_std, emit_cnt, compute_dtype),
+        flat_idx, flat_pad, chunk)
+    return {k: v.reshape((S, n_w) + v.shape[1:]) for k, v in out.items()}
+
+
+def _route(like: torch.Tensor, full_chunks: int) -> str:
+    """"graph" for a call whose tensors (``like``) lie on a card, with grad
+    off, no capture under way and at least two full chunks; else "eager"
+    (a call on a card that went eager counts its full chunks but the
+    first in ``eager_chunks``)."""
+    global eager_chunks
+    if not like.is_cuda or full_chunks < 2:
+        return "eager"
+    if torch.is_grad_enabled() or torch.cuda.is_current_stream_capturing():
+        eager_chunks += full_chunks - 1
+        return "eager"
+    return "graph"
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream of every chunk graph's warm-up and capture on ``device``:
+    one a device, since PyTorch keeps a cuBLAS workspace for each stream
+    that runs a product, for the life of the process."""
+    return torch.cuda.Stream(device)
+
+
+def _encode_chunks(encode, flat_idx, flat_pad, chunk):
+    """``encode(ci, cp)`` over the rows of ``flat_idx`` / ``flat_pad``,
+    ``chunk`` at a time, each chunk's outputs copied into its rows of
+    outputs allocated once (leading len(flat_idx)).
+
+    On the graph route (:func:`_route`) chunk 0 runs eagerly on the
+    device's side stream (:func:`_side_stream`) as the capture's warm-up,
+    then ``encode`` is captured there reading static (chunk, window) index
+    and pad buffers (``step_graph.Graph``; ``torch.cuda.graph`` waits for
+    the device and empties PyTorch's cache of free blocks first), and
+    every later full chunk is one replay: its rows copied into the static
+    buffers, the replay, its outputs copied out.  A shorter last chunk
+    runs eagerly.  The graph lives for the call."""
+    global chunk_captures, chunk_replays
+    n = len(flat_idx)
+    route = _route(flat_idx, n // chunk)
+    graph = static = None
+    out = {}
+    for s in range(0, n, chunk):
+        ci, cp = flat_idx[s:s + chunk], flat_pad[s:s + chunk]
+        if graph is not None and len(ci) == chunk:
+            with span("features.encode", windows=chunk, route="graph"):
+                step_graph.copy_tree(static, (ci, cp))
+                graph.replay()
+                part = graph.out
+            chunk_replays += 1
+        elif route == "graph" and s == 0:
+            side = _side_stream(flat_idx.device)
+            with span("features.encode", windows=chunk, route="eager"):
+                part = step_graph.warm_up(lambda: encode(ci, cp), side)
+            static = (ci.clone(), cp.clone())
+            # dense outputs, so that each copy out is one launch
+            graph = step_graph.Graph(
+                lambda: {k: v.contiguous()
+                         for k, v in encode(*static).items()},
+                side, counted=False)
+            chunk_captures += 1
+        else:
+            with span("features.encode", windows=len(ci), route="eager"):
+                part = encode(ci, cp)
+        if not out:
+            out = {k: v.new_empty((n,) + v.shape[1:])
+                   for k, v in part.items()}
+        step_graph.copy_tree([v[s:s + chunk] for v in out.values()],
+                             [part[k] for k in out])
+    return out
 
 
 @torch.no_grad()

@@ -17,7 +17,8 @@ them, so :class:`Graph` takes back what its capture added to the launch
 counters (``fused_attention.launches*``, ``pose_roots.launches``,
 ``pose_ik.launches``, ``pose.eager_steps``) and adds it again at every
 replay: a counter still reads the kernels launched.  ``captures`` counts
-captures, ``replays`` replays.
+the frame step's captures, ``replays`` its replays (the encoder's chunk
+graph, ``runtime/features``, counts its own).
 
 The CVAE noise of a replay is the eager step's: the generator the step
 draws from is registered with the graph (``register_generator_state``),
@@ -111,10 +112,12 @@ class Graph:
     """``body()`` captured on ``stream`` as a CUDA graph; ``out`` is what the
     capture returned (static: each replay writes it again).  ``generator``,
     when given, is registered with the graph: its draws inside the body
-    advance it at each replay as they would eagerly."""
+    advance it at each replay as they would eagerly.  ``counted``: whether
+    the capture and the replays count in ``captures`` and ``replays``."""
 
     def __init__(self, body, stream: torch.cuda.Stream,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 counted: bool = True):
         global captures
         self.graph = torch.cuda.CUDAGraph()
         if generator is not None:
@@ -131,14 +134,17 @@ class Graph:
         finally:      # the capture launched nothing
             for (o, a), n in zip(counters, before):
                 setattr(o, a, n)
-        captures += 1
+        self.counted = counted
+        if counted:
+            captures += 1
 
     def replay(self) -> None:
         global replays
         self.graph.replay()
         for o, a, n in self.adds:
             setattr(o, a, getattr(o, a) + n)
-        replays += 1
+        if self.counted:
+            replays += 1
 
 
 class Rows:
